@@ -45,7 +45,7 @@ def full_arch_config(name: str) -> DualEncoderConfig:
     return FULL_ARCH_CONFIGS[name]
 
 
-def load_arch_model(name: str, seed: int = 0, *, device="cuda", dtype=torch.bfloat16):
+def load_arch_model(name: str, seed: int = 0, *, device, dtype=torch.bfloat16):
     """Random-init model at the FULL published architecture (throughput is
     weight-independent)."""
     from .registry import model_info

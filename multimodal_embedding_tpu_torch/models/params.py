@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 
-def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, device="cpu") -> dict[str, torch.Tensor]:
+def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> dict[str, torch.Tensor]:
     """Flatten a JAX param tree (leaves: numpy arrays) into a state dict of
     the port's module names, on ``device`` in ``dtype``. Load it with
     ``module.load_state_dict(state)``."""

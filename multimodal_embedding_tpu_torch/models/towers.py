@@ -144,7 +144,7 @@ class TextTower(nn.Module):
 class DualEncoder(nn.Module):
     """Image and text towers; weights drawn from ``torch.Generator(seed)``."""
 
-    def __init__(self, cfg: DualEncoderConfig, *, seed: int = 0, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: DualEncoderConfig, *, seed: int = 0, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
         gen = torch.Generator(device=device).manual_seed(seed)

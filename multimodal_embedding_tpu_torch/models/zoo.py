@@ -86,7 +86,7 @@ def debug_preprocess(cfg: DualEncoderConfig) -> PreprocessConfig:
     )
 
 
-def load_debug_model(info: ModelInfo, seed: int = 0, *, device="cpu", dtype=torch.float32) -> LoadedModel:
+def load_debug_model(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32) -> LoadedModel:
     """Random-init small model (64 px images) for offline runs."""
     if info.type != "dense":
         raise NotImplementedError(f"{info.name} ({info.type}) is not yet ported")

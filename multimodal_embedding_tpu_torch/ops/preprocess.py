@@ -144,7 +144,7 @@ def _quant(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_preprocess_fn(
-    cfg: PreprocessConfig, h: int, w: int, *, device="cpu", pil_rounding: bool = True,
+    cfg: PreprocessConfig, h: int, w: int, *, device, pil_rounding: bool = True,
     input_format: str = "nhwc",
 ):
     """Build fn: uint8 [B,h,w,3] (or [B,3,h,w] with input_format='nchw') on
@@ -174,7 +174,7 @@ def make_preprocess_fn(
     return fn
 
 
-def make_normalize_fn(cfg: PreprocessConfig, input_format: str = "nchw", *, device="cpu"):
+def make_normalize_fn(cfg: PreprocessConfig, input_format: str = "nchw", *, device):
     """Normalize-only fn for crop-sized uint8 on ``device``.
 
     Input [B, 3, C, C] NCHW by default; output [B, C, C, 3] NHWC f32.

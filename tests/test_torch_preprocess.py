@@ -67,7 +67,7 @@ def _check_close(got: np.ndarray, want: np.ndarray, cfg) -> None:
 def test_plain_matches_jax_xla(h, w):
     x = _images(h, w)
     want = np.asarray(jpre.make_preprocess_fn(_as_jax_cfg(CFG), h, w, input_format="nchw")(jnp.asarray(x)))
-    got = tpre.make_preprocess_fn(CFG, h, w, input_format="nchw")(torch.from_numpy(x)).numpy()
+    got = tpre.make_preprocess_fn(CFG, h, w, device="cpu", input_format="nchw")(torch.from_numpy(x)).numpy()
     _check_close(got, want, CFG)
 
 
@@ -91,15 +91,15 @@ def test_plain_matches_jax_pallas_interpret(h, w):
 def test_nhwc_input_matches_nchw():
     h, w = 480, 640
     x = _images(h, w)
-    a = tpre.make_preprocess_fn(CFG, h, w, input_format="nchw")(torch.from_numpy(x))
-    b = tpre.make_preprocess_fn(CFG, h, w)(torch.from_numpy(x.transpose(0, 2, 3, 1).copy()))
+    a = tpre.make_preprocess_fn(CFG, h, w, device="cpu", input_format="nchw")(torch.from_numpy(x))
+    b = tpre.make_preprocess_fn(CFG, h, w, device="cpu")(torch.from_numpy(x.transpose(0, 2, 3, 1).copy()))
     assert torch.equal(a, b)
 
 
 def test_normalize_matches_jax():
     x = _images(336, 336)
     want = np.asarray(jpre.make_normalize_fn(_as_jax_cfg(CFG))(jnp.asarray(x)))
-    got = tpre.make_normalize_fn(CFG)(torch.from_numpy(x)).numpy()
+    got = tpre.make_normalize_fn(CFG, device="cpu")(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -158,7 +158,7 @@ def test_kernel_bands_cover_every_nonzero_weight(cfg, h, w):
 def test_kernel_arithmetic_matches_plain(h, w):
     x = _images(h, w, b=1, seed=3)
     got = _emulate_kernel(x[0], preprocess_weights(CFG, h, w, "cpu"))[None]
-    want = tpre.make_preprocess_fn(CFG, h, w, input_format="nchw")(torch.from_numpy(x)).numpy()
+    want = tpre.make_preprocess_fn(CFG, h, w, device="cpu", input_format="nchw")(torch.from_numpy(x)).numpy()
     _check_close(got, want, CFG)
 
 
@@ -172,7 +172,7 @@ def test_kernel_fn_on_cpu_is_the_plain_version():
     h, w = 427, 640
     x = torch.from_numpy(_images(h, w))
     a = make_preprocess_cuda_fn(CFG, h, w, device="cpu")(x)
-    b = tpre.make_preprocess_fn(CFG, h, w, input_format="nchw")(x)
+    b = tpre.make_preprocess_fn(CFG, h, w, device="cpu", input_format="nchw")(x)
     assert torch.equal(a, b)
 
 

@@ -49,7 +49,7 @@ def slice_pair():
     (tinfo,) = get_models_to_test("OpenAI-CLIP-L", BATCH)
     jmodel = jax_load_debug_model(jinfo, seed=SEED)
     tmodel = load_debug_model(tinfo, seed=SEED, device="cpu")
-    tmodel.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jmodel.params)))
+    tmodel.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jmodel.params), device="cpu"))
     return records, jmodel, tmodel
 
 

@@ -47,8 +47,8 @@ def impl(request):
 
 def _pair(cfg, seed=0):
     jparams = jtowers.dual_encoder_init(jax.random.key(seed), _as_jax_cfg(cfg))
-    model = DualEncoder(cfg)
-    model.load_state_dict(params_from_jax(_np_tree(jparams)))
+    model = DualEncoder(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(_np_tree(jparams), device="cpu"))
     return jparams, model
 
 
@@ -60,8 +60,8 @@ def test_debug_config_matches_jax():
 def test_params_from_jax_covers_every_weight():
     cfg = debug_dual_config("dense")
     jparams = jtowers.dual_encoder_init(jax.random.key(0), _as_jax_cfg(cfg))
-    state = params_from_jax(_np_tree(jparams), dtype=torch.bfloat16)
-    model = DualEncoder(cfg, dtype=torch.bfloat16)
+    state = params_from_jax(_np_tree(jparams), dtype=torch.bfloat16, device="cpu")
+    model = DualEncoder(cfg, device="cpu", dtype=torch.bfloat16)
     assert set(state) == set(model.state_dict())
     assert all(v.dtype == torch.bfloat16 for v in state.values())
     w = np.asarray(jparams["vision"]["encoder"]["attn"]["q"]["w"][1])
@@ -87,7 +87,7 @@ def test_encoder_layers_match_jax(impl, causal, masked):
     holder = torch.nn.Module()
     holder.encoder = tlayers.Encoder(cfg.layers, cfg.dim, cfg.heads, cfg.mlp_dim, cfg.act, cfg.ln_eps,
                                      gen=torch.Generator(), device="cpu", dtype=torch.float32)
-    holder.load_state_dict(params_from_jax({"encoder": _np_tree(stacked)}))
+    holder.load_state_dict(params_from_jax({"encoder": _np_tree(stacked)}, device="cpu"))
     tm = None if mask is None else torch.from_numpy(mask)
     with torch.no_grad():
         got_one = holder.encoder.layers[0](torch.from_numpy(x), causal=causal, mask=tm)
@@ -155,4 +155,4 @@ def test_activations_and_norms_match_jax(act):
 
 def test_siglip_style_is_not_yet_ported():
     with pytest.raises(NotImplementedError):
-        DualEncoder(debug_dual_config("siglip"))
+        DualEncoder(debug_dual_config("siglip"), device="cpu")
