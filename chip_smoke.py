@@ -7,16 +7,21 @@ Phases, each of which fails the run (nonzero exit, no result line):
   1. build the CUDA kernels of ``multimodal_embedding_tpu_torch/csrc`` (one
      nvcc per source, all at once) and print the build seconds;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes, with the tolerances stated below, and time both,
-     the one PyTorch library call that computes the same function (where
-     there is one) and the least time the card could take (``bound_ms``);
-  3. the main path at full width: the port's CLI in-process on the synthetic
-     dataset with OpenAI-CLIP-L at its published architecture and random
-     weights; the launch counts are set to 0 just before and read just after;
+     main paths' shapes (OpenAI-CLIP-L and ColPali-v1.3), with the
+     tolerances stated below, and time both, the one PyTorch library call
+     that computes the same function (where there is one) and the least
+     time the card could take (``bound_ms``);
+  3. the main paths at full width, each through the port's CLI in-process
+     on the synthetic dataset at the model's published architecture with
+     random weights: OpenAI-CLIP-L (dense), then ColPali-v1.3 (multi-vector,
+     MaxSim scoring); each path's launch counts are set to 0 just before it
+     and read just after, and every kernel of the path must have launched;
   4. a bench-shaped throughput line (bench.py's run_once: 288 images of
      480x640, batch 96, three timed passes from the staged cache);
   5. full-width consistency: CLS embeddings of 8 images through the kernels
-     in bf16 against the plain versions in f32, per-row cosine >= 0.999.
+     in bf16 against the plain versions in f32, per-row cosine >= 0.999;
+     ColPali per-token embeddings of 2 images and 4 captions, the same way,
+     per-token cosine >= 0.99 over valid tokens and exact-zero pad tokens.
 
 The last three lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
@@ -51,11 +56,22 @@ ATTN_TOL_F32 = 1e-5
 ATTN_REL_TOL_BF16 = 1e-2
 ATTN_REL_TOL_F32 = 1e-5
 PRE_MIN_BIT_EQUAL = 0.999  # fraction of output elements bit-equal to the plain version
+# MaxSim, max|d|/max|plain| against the f32 plain version on the same inputs:
+# bf16 products are exact in f32, so only the order of the f32 sums differs.
+MAXSIM_REL_TOL_BF16 = 1e-4
+MAXSIM_REL_TOL_F32 = 1e-5
 COSINE_MIN = 0.999
+# ColPali per-token cosine, kernels in bf16 vs plain versions in f32: 27
+# SigLIP and 18 Gemma layers of bf16 rounding at full width.
+COLPALI_COSINE_MIN = 0.99
 
 CLI_ARGS = [
     "--dataset", "synthetic", "--arch-models", "--models", "OpenAI-CLIP-L",
     "--sample-size", "512", "--bootstrap-iterations", "200", "--batch-size", "64",
+]
+COLPALI_CLI_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", "ColPali-v1.3",
+    "--sample-size", "128", "--bootstrap-iterations", "100",
 ]
 REFERENCE_COLUMNS = (
     ["Model", "Weights"]
@@ -177,7 +193,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     return case
 
 
-def _preprocess_case(h, w, b, rng):
+def _preprocess_case(h, w, b, rng, model="OpenAI-CLIP-L"):
     import torch
 
     from multimodal_embedding_tpu_torch.models.registry import model_info
@@ -185,7 +201,7 @@ def _preprocess_case(h, w, b, rng):
     from multimodal_embedding_tpu_torch.ops.preprocess_cuda import make_preprocess_cuda_fn, preprocess_weights
     from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
 
-    cfg = model_info("OpenAI-CLIP-L").preprocess
+    cfg = model_info(model).preprocess
     c = cfg.image_size
     x = torch.from_numpy(rng.integers(0, 256, size=(b, 3, h, w), dtype=np.uint8)).cuda()
     kern = make_preprocess_cuda_fn(cfg, h, w, device="cuda")
@@ -206,10 +222,54 @@ def _preprocess_case(h, w, b, rng):
     flops = 2.0 * 3 * b * preprocess_weights(cfg, h, w, "cpu").taps
     nbytes = b * 3 * h * w + b * c * c * 3 * 4
     bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
-    case = {"case": f"{h}x{w}->{c}", "shape": [b, 3, h, w], "bit_equal": bit_equal,
+    case = {"case": f"{model} {cfg.resize_mode} {h}x{w}->{c}", "shape": [b, 3, h, w], "bit_equal": bit_equal,
             "max_abs_err": max(per_ch), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bms, "bound_by": by}
     print(f"[preprocess] {json.dumps(case)}")
+    return case
+
+
+def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng):
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import maxsim_cuda
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+
+    def unit(shape):  # unit-norm token embeddings, as ColPali's head gives
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+
+    q, d = unit((nq, tq, dim)), unit((nd, td, dim))
+    qm = dm = None
+    nq_valid, nd_valid = nq * tq, nd * td
+    if masked:
+        qm_np = (rng.random((nq, tq)) > 0.25).astype(np.float32)
+        dm_np = rng.random((nd, td)) > 0.25
+        dm_np[:, 0] = True  # every doc keeps a valid token
+        qm, dm = torch.from_numpy(qm_np).to(dev), torch.from_numpy(dm_np).to(dev)
+        nq_valid, nd_valid = int((qm_np != 0).sum()), int(dm_np.sum())
+    out = maxsim_cuda.maxsim_cuda(q, d, qm, dm)
+    torch.cuda.synchronize()
+    plain = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm)
+    err = float((out - plain).abs().max())
+    rel = err / float(plain.abs().max())
+    bf16 = dtype == torch.bfloat16
+    tol = MAXSIM_REL_TOL_BF16 if bf16 else MAXSIM_REL_TOL_F32
+    require(math.isfinite(rel) and rel <= tol, f"maxsim {name}: max|d|/max|plain| {rel} > {tol}")
+    ms = cuda_time_ms(lambda: maxsim_cuda.maxsim_cuda(q, d, qm, dm))
+    plain_ms = cuda_time_ms(lambda: maxsim_cuda.maxsim_scores_ref(q, d, qm, dm))
+    # the dot products these masks need: weighted query tokens x valid doc tokens
+    flops = 2.0 * dim * nq_valid * nd_valid
+    nbytes = q.element_size() * dim * (nq * tq + nd * td) + 4 * nq * nd
+    if masked:
+        nbytes += 4 * nq * tq + nd * td
+    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    case = {"case": name, "shape": [nq, tq, nd, td, dim], "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bms, "bound_by": by}
+    print(f"[maxsim] {json.dumps(case)}")
     return case
 
 
@@ -227,8 +287,25 @@ def phase_kernels() -> list[dict]:
                         dtype=bf16, causal=True, masked=True, layout="bhtd", full_mask_rows=True, rng=rng),
         _attention_case("f32 packed causal+mask", b=4, h=4, kvh=4, t=77, dh=64, dtype=torch.float32,
                         causal=True, masked=True, layout="packed", full_mask_rows=True, rng=rng),
+        # ColPali-v1.3: SigLIP-448 (Dh 72), Gemma MQA (Dh 256) over 1024 image
+        # + 6 suffix tokens, and the Gemma text sweep (key mask, not causal)
+        _attention_case("colpali siglip-448 packed", b=8, h=16, kvh=16, t=1024, dh=72, dtype=bf16,
+                        causal=False, masked=False, layout="packed", full_mask_rows=False, rng=rng),
+        _attention_case("colpali gemma image packed mqa", b=8, h=8, kvh=1, t=1030, dh=256, dtype=bf16,
+                        causal=False, masked=False, layout="packed", full_mask_rows=False, rng=rng),
+        _attention_case("colpali gemma text packed mqa+mask", b=128, h=8, kvh=1, t=32, dh=256, dtype=bf16,
+                        causal=False, masked=True, layout="packed", full_mask_rows=False, rng=rng),
     ]
     pre = [_preprocess_case(h, w, 64, rng) for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
+    pre.append(_preprocess_case(480, 640, 8, rng, model="ColPali-v1.3"))
+    maxsim = [
+        _maxsim_case("colpali t2i", nq=128, tq=32, nd=128, td=1030, dim=128, dtype=bf16, masked=False, rng=rng),
+        _maxsim_case("colpali i2t", nq=128, tq=1030, nd=640, td=32, dim=128, dtype=bf16, masked=False, rng=rng),
+        _maxsim_case("masked padding edges", nq=37, tq=45, nd=29, td=75, dim=128, dtype=bf16, masked=True,
+                     rng=rng),
+        _maxsim_case("f32 masked padding edges", nq=37, tq=45, nd=29, td=75, dim=128, dtype=torch.float32,
+                     masked=True, rng=rng),
+    ]
     root = "multimodal_embedding_tpu_torch/csrc"
     return [
         {"name": "fused_attention", "route": "cuda", "source": f"{root}/attention.cu",
@@ -237,6 +314,9 @@ def phase_kernels() -> list[dict]:
         {"name": "preprocess", "route": "cuda", "source": f"{root}/preprocess.cu",
          "replaces": "multimodal_embedding_tpu/ops/preprocess_pallas.py:57", **_headline(pre[0]),
          "cases": pre},
+        {"name": "maxsim", "route": "cuda", "source": f"{root}/maxsim.cu",
+         "replaces": "multimodal_embedding_tpu/ops/maxsim.py:128", **_headline(maxsim[0]),
+         "cases": maxsim},
     ]
 
 
@@ -248,32 +328,68 @@ def _headline(case: dict) -> dict:
 # --- phase 3 -------------------------------------------------------------------
 
 
-def phase_main_path(kernels: list[dict]) -> None:
+def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[dict, dict, list]:
+    """Run the port's CLI in-process with every launch count set to 0 just
+    before; returns (the CSV row, the counts just after, the shapes and
+    finiteness of the score matrices it built)."""
     import pandas as pd
 
-    from multimodal_embedding_tpu_torch.cli.main import main as cli_main
-    from multimodal_embedding_tpu_torch.ops import attention_cuda, preprocess_cuda
+    from multimodal_embedding_tpu_torch.cli import main as cli
+    from multimodal_embedding_tpu_torch.ops import attention_cuda, maxsim_cuda, preprocess_cuda
 
+    mods = {"fused_attention": attention_cuda, "preprocess": preprocess_cuda, "maxsim": maxsim_cuda}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    out = OUT_DIR / "main_path.csv"
+    out = OUT_DIR / csv_name
     out.unlink(missing_ok=True)
-    attention_cuda.launches = 0
-    preprocess_cuda.launches = 0
-    rc = cli_main([*CLI_ARGS, "--output", str(out)])
-    counts = {"fused_attention": attention_cuda.launches, "preprocess": preprocess_cuda.launches}
-    require(rc == 0, f"main path CLI exited {rc}")
+    scores = []
+    compute = cli.compute_score_matrices
+
+    def recording(*a, **kw):  # reads the matrices after the timed encode
+        s_t2i, s_i2t, t = compute(*a, **kw)
+        scores.extend((tuple(s.shape), bool(s.isfinite().all())) for s in (s_t2i, s_i2t))
+        return s_t2i, s_i2t, t
+
+    cli.compute_score_matrices = recording
+    for m in mods.values():
+        m.launches = 0
+    try:
+        rc = cli.main([*args, "--output", str(out)])
+    finally:
+        counts = {n: m.launches for n, m in mods.items()}
+        cli.compute_score_matrices = compute
+    require(rc == 0, f"main path CLI {args} exited {rc}")
     df = pd.read_csv(out)
     require(list(df.columns) == REFERENCE_COLUMNS, f"CSV columns {list(df.columns)}")
     row = df.iloc[0]
     for col in REFERENCE_COLUMNS[2:-5]:
-        require(0.0 <= float(row[col]) <= 100.0 or col.endswith("_std"), f"{col} = {row[col]} outside [0, 100]")
+        val = float(row[col])
+        require(math.isfinite(val) and (0.0 <= val <= 100.0 or col.endswith("_std")), f"{col} = {val}")
     require(float(row["QPS"]) > 0, f"QPS {row['QPS']}")
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-        require(k["launches"] > 0, f"kernel {k['name']} was not launched on the main path")
+    for n in names:
+        require(counts[n] > 0, f"kernel {n} was not launched on the {row['Model']} main path")
     print(f"[main] {row['Model']} weights={row['Weights']} QPS={float(row['QPS'])} "
-          f"Encoding_Time={float(row['Encoding_Time'])} T2I_R@1={float(row['T2I_R@1_mean'])} "
-          f"launches={json.dumps(counts)}")
+          f"Encoding_Time={float(row['Encoding_Time'])} Time={float(row['Time'])} "
+          f"T2I_R@1={float(row['T2I_R@1_mean'])} T2I_R@10={float(row['T2I_R@10_mean'])} "
+          f"I2T_R@10={float(row['I2T_R@10_mean'])} launches={json.dumps(counts)} scores={scores}")
+    return row, counts, scores
+
+
+def phase_main_path(kernels: list[dict]) -> None:
+    import torch
+
+    _, clip_counts, _ = _main_path(CLI_ARGS, "main_path.csv", ("fused_attention", "preprocess"))
+    torch.cuda.empty_cache()
+    row, counts, scores = _main_path(COLPALI_CLI_ARGS, "colpali.csv", ("fused_attention", "preprocess", "maxsim"))
+    n = 128
+    want = [((n, n), True), ((n, 5 * n), True)]
+    require(scores == want, f"ColPali score matrices {scores}, want {want} (shape, all finite)")
+    # the NaN-poisoned scores of a zero-pad / eps-free normalization give
+    # R@10 = 100 with random weights
+    require(float(row["T2I_R@10_mean"]) < 100.0, f"ColPali T2I R@10 {row['T2I_R@10_mean']}")
+    for k in kernels:  # this slice's main path, ColPali, runs every kernel
+        k["launches"] = counts[k["name"]]
+        k["launches_by_path"] = {"OpenAI-CLIP-L": clip_counts[k["name"]], "ColPali-v1.3": counts[k["name"]]}
+    torch.cuda.empty_cache()
 
 
 # --- phases 4 and 5 ----------------------------------------------------------------
@@ -328,6 +444,55 @@ def phase_bench_and_consistency() -> None:
     require(bool((cos >= COSINE_MIN).all()), f"cosine {float(cos.min())} < {COSINE_MIN}")
 
 
+def phase_colpali_consistency() -> None:
+    """ColPali-v1.3 at full width, the same random weights: per-token
+    embeddings of 2 images and 4 captions through the kernels in bf16 against
+    the plain versions in f32 (preprocess "xla", attention "xla")."""
+    import copy
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.arch import load_arch_model
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+
+    dev = torch.device("cuda")
+    images = _bench_images(2)
+    captions = ["a dog", "two people riding bicycles along a river at sunset",
+                "a red car parked next to a tall building on a busy street", "kitchen"]
+    model = load_arch_model("ColPali-v1.3", seed=0, device=dev, dtype=torch.bfloat16)
+    layers.set_attention_impl("auto")
+    engine = EncodingEngine(model, batch_size=2, device=dev, preprocess_impl="auto")
+    img_k = engine.encode_images(images).embeddings
+    txt_k = engine.encode_texts(captions)
+    model32 = copy.copy(model)
+    model32.model = copy.deepcopy(model.model).float()
+    del model, engine
+    layers.set_attention_impl("xla")
+    try:
+        plain = EncodingEngine(model32, batch_size=2, device=dev, preprocess_impl="xla")
+        img_p = plain.encode_images(images).embeddings
+        txt_p = plain.encode_texts(captions)
+    finally:
+        layers.set_attention_impl("auto")
+    del model32, plain
+    torch.cuda.empty_cache()
+
+    valid = txt_k.mask.bool()
+    require(bool((txt_p.mask.bool() == valid).all()), "ColPali text masks differ")
+    for name, emb in (("kernel", txt_k.embeddings), ("plain", txt_p.embeddings)):
+        require(bool((emb[~valid] == 0).all()), f"ColPali {name} pad tokens are not exact zeros")
+        require(bool(emb.float().isfinite().all()), f"ColPali {name} embeddings not finite")
+    cos_img = torch.nn.functional.cosine_similarity(img_k.float(), img_p.float(), dim=-1)  # [2, 1030]
+    cos_txt = torch.nn.functional.cosine_similarity(txt_k.embeddings.float(), txt_p.embeddings.float(), dim=-1)[valid]
+    print(f"[consistency] ColPali per-token cosine kernel-bf16 vs plain-f32: images min "
+          f"{float(cos_img.min())} mean {float(cos_img.mean())} over {cos_img.numel()} tokens; texts min "
+          f"{float(cos_txt.min())} mean {float(cos_txt.mean())} over {cos_txt.numel()} valid tokens; "
+          f"pad tokens {int((~valid).sum())} exact zeros in both")
+    worst = min(float(cos_img.min()), float(cos_txt.min()))
+    require(worst >= COLPALI_COSINE_MIN, f"ColPali per-token cosine {worst} < {COLPALI_COSINE_MIN}")
+
+
 def main() -> int:
     import torch
 
@@ -344,6 +509,7 @@ def main() -> int:
     kernels = phase_kernels()
     phase_main_path(kernels)
     phase_bench_and_consistency()
+    phase_colpali_consistency()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -34,7 +34,7 @@ from ..data.coco import load_benchmark_dataset
 from ..models.encode import DeviceImageCache, EncodingEngine, stage_images
 from ..models.registry import get_models_to_test
 from ..models.zoo import LoadedModel, load_debug_model
-from ..retrieval.scoring import dense_scores
+from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..stats.bootstrap import bootstrap_benchmark
 from ..stats.ci import bootstrap_confidence_interval
 from ..utils.logging import setup_logging
@@ -69,7 +69,10 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=SEED)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="Run on the CUDA card (default) or, only when asked, the CPU")
-    p.add_argument("--maxsim-impl", type=str, default="auto", choices=["auto", "pallas", "xla"])
+    p.add_argument("--maxsim-impl", type=str, default="auto", choices=["auto", "pallas", "xla"],
+                   help="Multi-vector (ColPali) scoring: auto and pallas (the MaxSim "
+                        "CUDA kernel on the card), or the plain PyTorch version (xla); "
+                        "on the CPU always the plain version")
     p.add_argument("--transport", type=str, default="auto", choices=["auto", "host", "device"],
                    help="Image transport: on-device resize (host: not yet ported)")
     p.add_argument("--device-cache", action=argparse.BooleanOptionalAction, default=True,
@@ -129,6 +132,7 @@ def compute_score_matrices(
     engine: EncodingEngine,
     records: list[dict],
     cache: DeviceImageCache | None = None,
+    maxsim_impl: str = "auto",
 ):
     """Encode once, build the two full score matrices. Returns
     (s_t2i [N,N], s_i2t [N,K*N], encoding_time)."""
@@ -145,8 +149,14 @@ def compute_score_matrices(
     txt_all = engine.encode_texts(all_captions)
     encoding_time = time.perf_counter() - t0
 
-    s_t2i = dense_scores(txt_t2i.embeddings, img.embeddings)
-    s_i2t = dense_scores(img.embeddings, txt_all.embeddings)
+    if model.multi_vector:
+        # no masks: pad-token embeddings are exact zeros (COMPAT #8),
+        # reproducing colpali_engine's scoring
+        s_t2i = late_interaction_scores(txt_t2i.embeddings, img.embeddings, impl=maxsim_impl)
+        s_i2t = late_interaction_scores(img.embeddings, txt_all.embeddings, impl=maxsim_impl)
+    else:
+        s_t2i = dense_scores(txt_t2i.embeddings, img.embeddings)
+        s_i2t = dense_scores(img.embeddings, txt_all.embeddings)
     return s_t2i, s_i2t, encoding_time
 
 
@@ -160,6 +170,7 @@ def run_bootstrap_benchmark(
     seed: int = SEED,
     cache: DeviceImageCache | None = None,
     preprocess_impl: str = "auto",
+    maxsim_impl: str = "auto",
     encode_passes: int = 1,
     sample_idx: np.ndarray | None = None,
     ci_idx: np.ndarray | None = None,
@@ -181,12 +192,12 @@ def run_bootstrap_benchmark(
             engine.warmup(g, text_sets=text_sets)
 
     t_start = time.perf_counter()
-    s_t2i, s_i2t, encoding_time = compute_score_matrices(model, engine, records, cache)
+    s_t2i, s_i2t, encoding_time = compute_score_matrices(model, engine, records, cache, maxsim_impl)
     if encode_passes > 1:
         # scores are deterministic; extra passes only re-time the encode
         times = [encoding_time]
         for _ in range(encode_passes - 1):
-            times.append(compute_score_matrices(model, engine, records, cache)[2])
+            times.append(compute_score_matrices(model, engine, records, cache, maxsim_impl)[2])
         encoding_time = float(np.median(times))
         logger.info(f"encode passes: {[round(t, 2) for t in times]} -> median {encoding_time:.2f}s")
     logger.info(f"Encoding+scoring completed in {encoding_time:.1f}s")
@@ -266,7 +277,7 @@ def main(argv=None) -> int:
                 result = run_bootstrap_benchmark(
                     model, records, args.bootstrap_iterations, device=device, batch_size=args.batch_size,
                     seed=args.seed, cache=cache, preprocess_impl=args.preprocess_impl,
-                    encode_passes=args.encode_passes,
+                    maxsim_impl=args.maxsim_impl, encode_passes=args.encode_passes,
                 )
             bootstrap_metrics = result.pop("_bootstrap_metrics", None)
             if bootstrap_metrics:

@@ -2,12 +2,13 @@
 
 Counterpart of ``multimodal_embedding_tpu/models/arch.py``: the architecture,
 and so the performance envelope, of the HF checkpoint the reference loads;
-only the weights are random. This slice of the port carries the dense
-flagship, OpenAI-CLIP-L.
+only the weights are random. The port carries the dense flagship,
+OpenAI-CLIP-L, and ColPali-v1.3.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .towers import DualEncoder, DualEncoderConfig, TextConfig, VisionConfig
@@ -45,13 +46,44 @@ def full_arch_config(name: str) -> DualEncoderConfig:
     return FULL_ARCH_CONFIGS[name]
 
 
+def full_colpali_config():
+    """vidore/colpali-v1.3: PaliGemma-3B (SigLIP-So400m/14-448 + Gemma-2B)
+    with a 128-d retrieval head."""
+    from .colpali import ColPaliConfig
+    from .gemma import GemmaConfig
+
+    return ColPaliConfig(
+        vision=VisionConfig(
+            image_size=448, patch_size=14, dim=1152, layers=27, heads=16, mlp_dim=4304,
+            proj_dim=None, style="siglip", act="gelu_pytorch_tanh", ln_eps=1e-6,
+            use_head=False,
+        ),
+        gemma=GemmaConfig(
+            vocab_size=257216, dim=2048, layers=18, heads=8, kv_heads=1, head_dim=256,
+            mlp_dim=16384,
+        ),
+        embedding_dim=128,
+        image_token_id=257152,
+    )
+
+
 def load_arch_model(name: str, seed: int = 0, *, device, dtype=torch.bfloat16):
     """Random-init model at the FULL published architecture (throughput is
-    weight-independent)."""
+    weight-independent). The weights are drawn on ``device``."""
     from .registry import model_info
     from .zoo import LoadedModel, hash_tokenizer
 
     info = model_info(name)
+    if info.type == "colpali":
+        from .colpali import ColPali
+
+        cfg = full_colpali_config()
+        suffix = np.array([2, 10, 11, 12, 13, 14], np.int32)  # a 6-token prompt suffix
+        return LoadedModel(
+            info=info, cfg=cfg, model=ColPali(cfg, suffix, seed=seed, device=device, dtype=dtype),
+            preprocess=info.preprocess, tokenize=hash_tokenizer(cfg.gemma.vocab_size, 32, 1),
+            multi_vector=True, weights_provenance="arch-random",
+        )
     cfg = full_arch_config(name)
     return LoadedModel(
         info=info, cfg=cfg, model=DualEncoder(cfg, seed=seed, device=device, dtype=dtype),

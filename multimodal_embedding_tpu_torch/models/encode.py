@@ -3,10 +3,17 @@
 Counterpart of ``multimodal_embedding_tpu/models/encode.py``. Raw uint8
 images are staged on the device once, grouped by native geometry and
 pre-batched (``stage_images``); each batch then runs preprocess (the CUDA
-kernel on the card) -> vision tower -> L2 normalize with no host traffic.
-Text sweeps run in batches of ``max(batch, 128)``. Embeddings are f32.
-Every timed result ends in :func:`~..utils.timing.hard_sync`, so the
-seconds it reports are device completion.
+kernel on the card) -> model -> L2 normalize with no host traffic. Text
+sweeps run in batches of ``max(batch, 128)``. Every timed result ends in
+:func:`~..utils.timing.hard_sync`, so the seconds it reports are device
+completion.
+
+Dense models give f32 embeddings [N, E], L2-normalized here. Multi-vector
+models (ColPali) give per-token embeddings [N, T, D] in bf16, as the JAX
+package stores them; their forward already normalizes each token with
+``max(norm, 1e-12)`` and zeroes query pad tokens, so they are not normalized
+again: the JAX engine's second ``x / norm`` turns every zero pad vector into
+NaN, and here pads stay exact zeros.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ PREPROCESS_IMPLS = ("auto", "xla", "pallas")
 
 @dataclass
 class EncodeResult:
-    embeddings: torch.Tensor  # [N, E] f32
+    embeddings: torch.Tensor  # [N, E] f32, or [N, T, D] bf16 for multi-vector models
+    mask: torch.Tensor | None  # [N, T] token mask of multi-vector texts
     seconds: float
 
 
@@ -99,14 +107,19 @@ class EncodingEngine:
                 self._pre_fns[key] = make_preprocess_fn(cfg, h, w, device=self.device, input_format="nchw")
         return self._pre_fns[key]
 
+    def _finish(self, emb: torch.Tensor) -> torch.Tensor:
+        if self.model.multi_vector:
+            return emb.to(torch.bfloat16)
+        return l2_normalize(emb).float()
+
     @torch.inference_mode()
     def _image_batch(self, batch_u8: torch.Tensor, h: int, w: int) -> torch.Tensor:
         px = self._preprocess_fn(h, w)(batch_u8)
-        return l2_normalize(self.model.model.encode_image(px)).float()
+        return self._finish(self.model.model.encode_image(px))
 
     @torch.inference_mode()
     def _text_batch(self, ids: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        return l2_normalize(self.model.model.encode_text(ids, mask)).float()
+        return self._finish(self.model.model.encode_text(ids, mask))
 
     @staticmethod
     def _scatter(chunks: list[tuple[list[int], torch.Tensor]], n: int) -> torch.Tensor:
@@ -134,7 +147,7 @@ class EncodingEngine:
                 dev = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
                 chunks.append((bidx, self._image_batch(dev, h, w)))
         out = hard_sync(self._scatter(chunks, len(images)))
-        return EncodeResult(out, time.perf_counter() - t0)
+        return EncodeResult(out, None, time.perf_counter() - t0)
 
     def encode_images_cached(self, cache: DeviceImageCache) -> EncodeResult:
         """Encode from a device-resident image cache, batch by batch; staged
@@ -150,7 +163,7 @@ class EncodingEngine:
                     embs.append(self._image_batch(batch_u8[s : s + step], h, w))
             chunks.append((idxs, torch.cat(embs)[:count]))
         out = hard_sync(self._scatter(chunks, cache.n_images))
-        return EncodeResult(out, time.perf_counter() - t0)
+        return EncodeResult(out, None, time.perf_counter() - t0)
 
     def encode_texts(self, texts: list[str]) -> EncodeResult:
         """Tokenize on the host, ship the ids once, encode in batches of
@@ -166,7 +179,8 @@ class EncodingEngine:
             for s in range(0, n, bs)
         ]
         out = hard_sync(torch.cat(outs))
-        return EncodeResult(out, time.perf_counter() - t0)
+        out_mask = mask_d if self.model.multi_vector else None
+        return EncodeResult(out, out_mask, time.perf_counter() - t0)
 
     def warmup_texts(self, text_sets: list[list[str]]) -> None:
         """Run each caption set once before timing (first-use costs: kernel

@@ -1,11 +1,13 @@
 """The weight carrier: a JAX param tree, given as numpy arrays, to the port's
 modules.
 
-The JAX package keeps params as nested dicts with the encoder's layers
-stacked along a leading axis (``encoder/<name>`` is ``[L, ...]``). The port's
-modules use the same names and layouts, with the stack unrolled into
-``encoder.layers.<i>``; so the carrier is a rename plus an unstack, and every
-parity test feeds both packages the same weights through it.
+The JAX package keeps params as nested dicts with the layers of a stack
+along a leading axis: a tower's ``encoder/<name>`` and Gemma's
+``layers/<name>`` are ``[L, ...]``. The port's modules use the same names and
+layouts, with the stacks unrolled into ``encoder.layers.<i>`` and
+``layers.<i>``; so the carrier is a rename plus an unstack, and every parity
+test feeds both packages the same weights through it. Integer leaves (ColPali's
+``image_suffix_ids``) stay integers.
 """
 
 from __future__ import annotations
@@ -23,7 +25,11 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
     state: dict[str, torch.Tensor] = {}
 
     def put(name: str, arr) -> None:
-        state[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
+        arr = np.asarray(arr)
+        if np.issubdtype(arr.dtype, np.integer):
+            state[name] = torch.from_numpy(arr.copy()).to(device=device)
+        else:
+            state[name] = torch.from_numpy(np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype)
 
     def leaves(node: Mapping[str, Any], path: str):
         for key, val in node.items():
@@ -33,11 +39,15 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
                 yield f"{path}{key}", val
 
     for name, arr in leaves(tree, ""):
-        head, sep, rest = name.partition("encoder.")
-        if sep:  # [L, ...]-stacked encoder leaf -> one entry per layer
-            arr = np.asarray(arr)
-            for i in range(arr.shape[0]):
-                put(f"{head}encoder.layers.{i}.{rest}", arr[i])
-        else:
+        parts = name.split(".")
+        stack = next((j for j, key in enumerate(parts) if key in ("encoder", "layers")), None)
+        if stack is None:
             put(name, arr)
+            continue
+        # [L, ...]-stacked leaf -> one entry per layer
+        head, rest = ".".join(parts[: stack + 1]), ".".join(parts[stack + 1 :])
+        unrolled = f"{head}.layers" if parts[stack] == "encoder" else head
+        arr = np.asarray(arr)
+        for i in range(arr.shape[0]):
+            put(f"{unrolled}.{i}.{rest}", arr[i])
     return state

@@ -2,7 +2,7 @@
 
 Mirrors the reference registry (reference main.py:127-142) — same names, HF
 ids, type tags, and per-model batch sizes (ColPali model-pinned, like the
-reference's pin to 4; sized to the measured v5e optimum here) — extended
+reference's pin to 4, at the JAX package's value of 8) — extended
 with the preprocessing recipe each model's HF processor applies, so the
 device preprocessing path (ops/preprocess.py) is self-contained. A copy of
 ``multimodal_embedding_tpu/models/registry.py``.
@@ -42,9 +42,9 @@ MODEL_REGISTRY: list[ModelInfo] = [
         name="ColPali-v1.3",
         hf_id="vidore/colpali-v1.3",
         type="colpali",
-        # reference pins 4 (GPU OOM headroom, main.py:344); on v5e with the
-        # fused attention kernel batch 8 measures fastest (benchmarks:
-        # 29.0 img/s vs 26.2 at batch 4) and batch 4 is within 10% either way
+        # the reference pins 4 (GPU OOM headroom, main.py:344); 8 is the JAX
+        # package's value, kept as it is: no batch size has been chosen for
+        # the H100 yet
         batch_size=8,
         preprocess=PreprocessConfig(
             image_size=448, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD

@@ -1,9 +1,14 @@
-"""Dual-encoder towers (``clip`` style) as ``nn.Module``s.
+"""Dual-encoder towers as ``nn.Module``s.
 
-Counterpart of ``multimodal_embedding_tpu/models/towers.py`` for the CLIP
-family (OpenAI-CLIP-L and the debug stand-in): class token + learned
-positions, pre-layernorm encoder, CLS pooling through a final layernorm and
-a linear projection; a causal text tower pooled at the EOS position.
+Counterpart of ``multimodal_embedding_tpu/models/towers.py`` for:
+- the ``clip`` style (OpenAI-CLIP-L and the debug stand-in): class token +
+  learned positions, pre-layernorm encoder, CLS pooling through a final
+  layernorm and a linear projection; a causal text tower pooled at the EOS
+  position;
+- the headless ``siglip`` vision tower (``use_head=False``, the vision tower
+  inside ColPali's PaliGemma): patch bias, no class token, no pre-layernorm,
+  a post-layernorm over all tokens, and the ``[B, N, D]`` sequence returned.
+The siglip MAP head and the siglip text tower are not yet ported.
 
 Patchification is a reshape + matmul, as in the JAX package: a ``conv2d``
 on the card would go through cuDNN in TF32 by default.
@@ -73,6 +78,13 @@ def _require_clip(style: str) -> None:
         raise NotImplementedError(f"the {style!r} tower style is not yet ported")
 
 
+def _require_ported_vision(cfg: VisionConfig) -> None:
+    if cfg.style == "siglip" and cfg.use_head:
+        raise NotImplementedError("the siglip MAP head is not yet ported")
+    if cfg.style not in ("clip", "siglip"):
+        raise NotImplementedError(f"the {cfg.style!r} tower style is not yet ported")
+
+
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
     """[B, H, W, 3] -> [B, N, patch*patch*3] with (ph, pw, c) flatten order;
     non-divisible sizes crop the trailing pixels (a stride=patch conv)."""
@@ -86,23 +98,32 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
 class VisionTower(nn.Module):
     def __init__(self, cfg: VisionConfig, *, gen: torch.Generator, device, dtype):
         super().__init__()
-        _require_clip(cfg.style)
+        _require_ported_vision(cfg)
         self.cfg = cfg
-        n_tok = cfg.n_patches + 1
+        clip = cfg.style == "clip"
+        n_tok = cfg.n_patches + (1 if clip else 0)
         self.patch = nn.ParameterDict({"w": _normal((cfg.patch_size**2 * 3, cfg.dim), 0.02, gen, device, dtype)})
+        if not clip:
+            self.patch["b"] = nn.Parameter(torch.zeros(cfg.dim, device=device, dtype=dtype), requires_grad=False)
         self.pos = _normal((n_tok, cfg.dim), 0.02, gen, device, dtype)
         self.encoder = Encoder(cfg.layers, cfg.dim, cfg.heads, cfg.mlp_dim, cfg.act, cfg.ln_eps,
                                gen=gen, device=device, dtype=dtype)
         self.post_ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
-        self.cls = _normal((cfg.dim,), 0.02, gen, device, dtype)
-        self.pre_ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
-        self.proj = _normal((cfg.dim, cfg.proj_dim), cfg.dim**-0.5, gen, device, dtype)
+        if clip:
+            self.cls = _normal((cfg.dim,), 0.02, gen, device, dtype)
+            self.pre_ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
+            self.proj = _normal((cfg.dim, cfg.proj_dim), cfg.dim**-0.5, gen, device, dtype)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """pixels [B, S, S, 3] (normalized) -> unnormalized embeddings [B, E] f32."""
+        """pixels [B, S, S, 3] (normalized) -> clip: unnormalized embeddings
+        [B, E] f32; headless siglip: the post-layernorm patch sequence
+        [B, N, D] in the tower's dtype."""
         w = self.patch["w"]
         dtype = w.dtype
         x = torch.matmul(patchify(pixels.to(dtype), self.cfg.patch_size), w)
+        if self.cfg.style == "siglip":
+            x = self.encoder((x + self.patch["b"]) + self.pos.to(dtype))
+            return self.post_ln(x)
         cls = self.cls.to(dtype).expand(x.shape[0], 1, self.cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos.to(dtype)
         x = self.pre_ln(x)

@@ -1,15 +1,16 @@
 """Loaded-model bundle, tokenizers and the offline debug models.
 
 Counterpart of ``multimodal_embedding_tpu/models/zoo.py`` for the dense
-(CLIP) family. A ``LoadedModel`` carries everything the encoding engine
-needs: the towers, the preprocessing recipe and a tokenize callable.
-Loading real HF checkpoints is not yet ported.
+(CLIP) family and ColPali. A ``LoadedModel`` carries everything the encoding
+engine needs: the model (a ``DualEncoder`` or a ``ColPali``), the
+preprocessing recipe and a tokenize callable. Loading real HF checkpoints is
+not yet ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import numpy as np
 import torch
@@ -18,14 +19,20 @@ from ..ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, PreprocessConfig
 from .registry import ModelInfo
 from .towers import DualEncoder, DualEncoderConfig, TextConfig, VisionConfig
 
+if TYPE_CHECKING:
+    from .colpali import ColPali, ColPaliConfig
+
 
 @dataclass
 class LoadedModel:
     info: ModelInfo
-    cfg: DualEncoderConfig
-    model: DualEncoder
+    cfg: DualEncoderConfig | ColPaliConfig
+    model: DualEncoder | ColPali
     preprocess: PreprocessConfig
     tokenize: Callable[[list[str]], tuple[np.ndarray, np.ndarray]]
+    # multi-vector models (ColPali) return per-token embeddings [N, T, D],
+    # scored by MaxSim; dense models one vector per item
+    multi_vector: bool = False
     # Provenance of the weights, stamped into every result CSV ("real" =
     # converted HF checkpoint; "arch-random"/"debug-random" = random init,
     # throughput-valid but accuracy-meaningless).
@@ -33,7 +40,10 @@ class LoadedModel:
 
 
 def hash_tokenizer(vocab_size: int, max_len: int, eos_id: int):
-    """Deterministic word-hash tokenizer for offline debug models."""
+    """Word-hash tokenizer for offline debug models. Like the JAX package's,
+    it uses Python's ``hash``, which is salted per process: ids are the same
+    within a process (so both packages agree), not across processes unless
+    ``PYTHONHASHSEED`` is set."""
 
     def tokenize(texts: list[str]):
         ids = np.zeros((len(texts), max_len), np.int32)
@@ -87,7 +97,11 @@ def debug_preprocess(cfg: DualEncoderConfig) -> PreprocessConfig:
 
 
 def load_debug_model(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32) -> LoadedModel:
-    """Random-init small model (64 px images) for offline runs."""
+    """Random-init small model (64 px images; ColPali 28 px) for offline runs."""
+    if info.type == "colpali":
+        from .colpali import load_debug_colpali
+
+        return load_debug_colpali(info, seed=seed, device=device, dtype=dtype)
     if info.type != "dense":
         raise NotImplementedError(f"{info.name} ({info.type}) is not yet ported")
     cfg = debug_dual_config(info.type)

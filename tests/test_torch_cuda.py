@@ -7,14 +7,16 @@ a fixture, at run time). Run them on the card with
 
 Tolerances as in chip_smoke.py: attention 1e-5 in f32 and 2e-2 in bf16
 against the plain version in f32 on the same inputs; preprocess at least
-99.9% bit-equal and within one quantization level.
+99.9% bit-equal and within one quantization level; MaxSim max|d|/max|plain|
+at most 1e-5 in f32 and 1e-4 in bf16 (bf16 products are exact in f32, so
+only the order of the f32 sums differs).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from multimodal_embedding_tpu_torch.ops import attention_cuda
+from multimodal_embedding_tpu_torch.ops import attention_cuda, maxsim_cuda
 from multimodal_embedding_tpu_torch.ops.preprocess import PreprocessConfig, make_preprocess_fn, scale_shift
 from multimodal_embedding_tpu_torch.ops.preprocess_cuda import make_preprocess_cuda_fn
 
@@ -35,6 +37,9 @@ def dev():
     ("packed", 12, 12, 77, 64, True, True),
     ("bhtd", 8, 2, 100, 72, True, True),
     ("bhtd", 4, 1, 1030, 256, True, False),
+    ("packed", 16, 16, 1024, 72, False, False),  # SigLIP-448 in ColPali
+    ("packed", 8, 1, 1030, 256, False, False),  # Gemma over image + suffix tokens
+    ("packed", 8, 1, 32, 256, False, True),  # Gemma text sweep: key mask, not causal
 ])
 def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, causal, masked):
     rng = np.random.default_rng(0)
@@ -80,9 +85,10 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         attention_cuda.fused_attention(q16, q16, q16, layout="packed", num_heads=1)
 
 
+@pytest.mark.parametrize("mode,size", [("shortest_edge", 336), ("exact", 448)])
 @pytest.mark.parametrize("h,w", [(480, 640), (640, 480), (480, 480), (427, 640)])
-def test_preprocess_kernel_matches_plain(dev, h, w):
-    cfg = PreprocessConfig(image_size=336)
+def test_preprocess_kernel_matches_plain(dev, h, w, mode, size):
+    cfg = PreprocessConfig(image_size=size, resize_mode=mode)
     x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (4, 3, h, w), dtype=np.uint8)).to(dev)
     got = make_preprocess_cuda_fn(cfg, h, w, device=dev)(x)
     want = make_preprocess_fn(cfg, h, w, device=dev, input_format="nchw")(x)
@@ -90,3 +96,44 @@ def test_preprocess_kernel_matches_plain(dev, h, w):
     level = scale_shift(cfg)[0]
     for ch in range(3):
         assert float((got - want)[..., ch].abs().max()) <= level[ch] * (1 + 1e-5) + 1e-6
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-4)])
+@pytest.mark.parametrize("nq,tq,nd,td,dim,masked", [
+    (9, 32, 13, 1030, 128, False),  # ColPali T2I: text queries x image docs
+    (5, 1030, 21, 32, 128, False),  # ColPali I2T: image queries x text docs
+    (7, 33, 11, 65, 16, True),  # tails of every tile, masks
+    (3, 130, 9, 7, 8, True),  # a query over two row tiles, a short doc
+])
+def test_maxsim_kernel_matches_plain(dev, dtype, tol, nq, tq, nd, td, dim, masked):
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((nq, tq, dim), dtype=np.float32)).to(dev, dtype)
+    d = torch.from_numpy(rng.standard_normal((nd, td, dim), dtype=np.float32)).to(dev, dtype)
+    qm = dm = None
+    if masked:
+        qm = torch.from_numpy((rng.random((nq, tq)) > 0.2).astype(np.float32)).to(dev)
+        dm_np = rng.random((nd, td)) > 0.3
+        dm_np[0] = False  # a doc with no valid token: -1e30 per weighted query token
+        dm = torch.from_numpy(dm_np).to(dev)
+    before = maxsim_cuda.launches
+    got = maxsim_cuda.maxsim_scores(q, d, qm, dm, impl="pallas")
+    torch.cuda.synchronize()
+    assert maxsim_cuda.launches == before + 1
+    want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm)
+    assert got.dtype == torch.float32 and got.shape == (nq, nd)
+    if masked:  # the empty doc's column is exact sums of -1e30
+        np.testing.assert_allclose(got[:, 0].cpu().numpy(), want[:, 0].cpu().numpy(), rtol=1e-6)
+        got, want = got[:, 1:], want[:, 1:]
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_maxsim_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(2, 3, 12, device=dev, dtype=torch.bfloat16)  # D 12: not a multiple of 8
+    with pytest.raises(ValueError):
+        maxsim_cuda.maxsim_cuda(q, q)
+    q16 = torch.zeros(2, 3, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        maxsim_cuda.maxsim_cuda(q16, q16)
+    big = torch.zeros(2, 3, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        maxsim_cuda.maxsim_cuda(big, big)
