@@ -7,21 +7,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
   1. build the CUDA kernels of ``multimodal_embedding_tpu_torch/csrc`` (one
      nvcc per source, all at once) and print the build seconds;
   2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (OpenAI-CLIP-L and ColPali-v1.3), with the
-     tolerances stated below, and time both, the one PyTorch library call
-     that computes the same function (where there is one) and the least
-     time the card could take (``bound_ms``);
+     main paths' shapes (OpenAI-CLIP-L, ColPali-v1.3 and the fused encoder
+     layer's), with the tolerances stated below, and time both, the one
+     PyTorch library call that computes the same function (where there is
+     one) and the least time the card could take (``bound_ms``);
   3. the main paths at full width, each through the port's CLI in-process
      on the synthetic dataset at the model's published architecture with
-     random weights: OpenAI-CLIP-L (dense), then ColPali-v1.3 (multi-vector,
-     MaxSim scoring); each path's launch counts are set to 0 just before it
-     and read just after, and every kernel of the path must have launched;
+     random weights: OpenAI-CLIP-L (dense), ColPali-v1.3 (multi-vector,
+     MaxSim scoring), then OpenAI-CLIP-L again under ``--layer-impl fused``
+     (the prologue and stacked-QKV attention kernels in every encoder layer);
+     each path's launch counts are set to 0 just before it and read just
+     after, and every kernel of the path must have launched;
   4. a bench-shaped throughput line (bench.py's run_once: 288 images of
      480x640, batch 96, three timed passes from the staged cache);
   5. full-width consistency: CLS embeddings of 8 images through the kernels
-     in bf16 against the plain versions in f32, per-row cosine >= 0.999;
-     ColPali per-token embeddings of 2 images and 4 captions, the same way,
-     per-token cosine >= 0.99 over valid tokens and exact-zero pad tokens.
+     in bf16, under both layer impls, against the plain versions in f32,
+     per-row cosine >= 0.999; ColPali per-token embeddings of 2 images and 4
+     captions, the same way, per-token cosine >= 0.99 over valid tokens and
+     exact-zero pad tokens.
 
 The last three lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
@@ -60,6 +63,13 @@ PRE_MIN_BIT_EQUAL = 0.999  # fraction of output elements bit-equal to the plain 
 # bf16 products are exact in f32, so only the order of the f32 sums differs.
 MAXSIM_REL_TOL_BF16 = 1e-4
 MAXSIM_REL_TOL_F32 = 1e-5
+# The prologue kernel: x_new bit-equal to the plain version in the same dtype;
+# y against the plain version in f32 on the same inputs, max|d|/max|plain| and
+# mean|d|/mean|plain| (rounding h and y to bf16 gives about 0.4%).
+PROLOGUE_REL_TOL_BF16 = 1e-2
+PROLOGUE_REL_TOL_F32 = 1e-5
+LN_REL_TOL_BF16 = 1e-2  # LayerNorm, the same relative limits against f32
+LN_REL_TOL_F32 = 1e-5
 COSINE_MIN = 0.999
 # ColPali per-token cosine, kernels in bf16 vs plain versions in f32: 27
 # SigLIP and 18 Gemma layers of bf16 rounding at full width.
@@ -273,6 +283,143 @@ def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng):
     return case
 
 
+def _rel_errs(got, plain) -> tuple[float, float, float]:
+    """(max|d|, max|d|/max|plain|, mean|d|/mean|plain|) in f32."""
+    diff = (got.float() - plain).abs()
+    err = float(diff.max())
+    return err, err / float(plain.abs().max()), float(diff.mean()) / float(plain.abs().mean())
+
+
+def _prologue_case(name, *, m, d, n, dtype, has_delta, act, norm="ln", eps=1e-5, rng):
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import fused_ln_matmul_cuda as fl
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+
+    def rand(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale).to(dev, dtype)
+
+    x = rand((m, d))
+    delta = rand((m, d), 0.5) if has_delta else None
+    gamma = 1.0 + rand((d,), 0.1) if norm == "ln" else rand((d,), 0.1)
+    beta, b = (rand((d,), 0.1), rand((n,), 0.1)) if norm == "ln" else (None, None)
+    w = rand((d, n), d ** -0.5)
+    args = (x, delta, gamma, beta, w, b)
+    kw = dict(norm=norm, eps=eps, act=act)
+    x_new, y = fl.fused_res_norm_matmul(*args, **kw)
+    torch.cuda.synchronize()
+    want_x, _ = fl.reference(*args, **kw)
+    require(torch.equal(x_new, want_x), f"prologue {name}: x_new is not bit-equal to the plain version")
+    _, plain_y = fl.reference(*(None if t is None else t.float() for t in args), **kw)
+    err, max_rel, mean_rel = _rel_errs(y, plain_y)
+    del plain_y
+    tol = PROLOGUE_REL_TOL_BF16 if dtype == torch.bfloat16 else PROLOGUE_REL_TOL_F32
+    require(math.isfinite(err) and max_rel <= tol and mean_rel <= tol,
+            f"prologue {name}: relative err max {max_rel}, mean {mean_rel} > {tol}")
+    ms = cuda_time_ms(lambda: fl.fused_res_norm_matmul(*args, **kw))
+    plain_ms = cuda_time_ms(lambda: fl.reference(*args, **kw))
+    h = torch.empty(m, d, dtype=dtype, device=dev)  # for orientation: the bare product with its bias
+    addmm_ms = cuda_time_ms(lambda: torch.addmm(b, h, w) if b is not None else torch.mm(h, w))
+    del h
+    es = x.element_size()
+    flops = 2.0 * m * d * n
+    nbytes = es * (m * d * (2 + has_delta) + d * n + m * n + 2 * d + n)
+    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    case = {"case": name, "shape": [m, d, n], "dtype": str(dtype).replace("torch.", ""), "delta": has_delta,
+            "act": act, "norm": norm, "eps": eps, "x_new_bit_equal": True, "max_abs_err": err,
+            "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "addmm_ms": addmm_ms, "bound_ms": bms, "bound_by": by}
+    print(f"[prologue] {json.dumps(case)}")
+    return case
+
+
+def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_rows, rng):
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_embedding_tpu_torch.ops import attention_cuda as ac
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * h * dh), dtype=np.float32)).to(dev, dtype)
+    km = None
+    if masked:
+        lengths = rng.integers(3, t + 1, size=b)
+        km_np = (np.arange(t)[None, :] < lengths[:, None]).astype(np.int32)
+        if full_mask_rows:
+            km_np[-1] = 0  # every query row of the last sequence is fully masked
+        km = torch.from_numpy(km_np).to(dev)
+    kw = dict(causal=causal, num_heads=h)
+    out = ac.fused_attention_qkv(qkv, km, **kw)
+    q, k, v = ac._split_qkv(qkv, h, h)
+    same = ac.fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), km, layout="packed", **kw)
+    torch.cuda.synchronize()
+    require(torch.equal(out, same), f"attention_qkv {name}: not bit-equal to fused_attention on copies")
+    scale = 1.0 / math.sqrt(dh)
+    plain = ac._plain_qkv(qkv.float(), km, causal, scale, h, h)
+    err, max_rel, mean_rel = _rel_errs(out, plain)
+    bf16 = dtype == torch.bfloat16
+    tol, rel_tol = (ATTN_TOL_BF16, ATTN_REL_TOL_BF16) if bf16 else (ATTN_TOL_F32, ATTN_REL_TOL_F32)
+    require(math.isfinite(err) and err <= tol, f"attention_qkv {name}: max abs err {err} > {tol}")
+    require(max_rel <= rel_tol and mean_rel <= rel_tol,
+            f"attention_qkv {name}: relative err max {max_rel}, mean {mean_rel} > {rel_tol}")
+    if full_mask_rows:
+        require(bool((out[-1] == 0).all()), f"attention_qkv {name}: fully masked sequence not exact zeros")
+    ms = cuda_time_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw))
+    plain_ms = cuda_time_ms(lambda: ac._plain_qkv(qkv, km, causal, scale, h, h))
+    q4, k4, v4 = (x.reshape(b, t, h, dh).transpose(1, 2) for x in (q, k, v))  # views, no copy
+    valid = torch.ones(b, 1, t, t, dtype=torch.bool, device=dev)
+    if km is not None:
+        valid = valid & km.bool()[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+    attn_mask = valid if (masked or causal) else None
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask))
+    pairs = float(valid.sum()) * h
+    flops = 4.0 * pairs * dh
+    nbytes = qkv.element_size() * dh * 4 * b * t * h + (b * t if km is not None else 0)
+    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    case = {"case": name, "shape": [b, t, 3 * h * dh], "heads": h, "dtype": str(dtype).replace("torch.", ""),
+            "bit_equal_to_fused_attention": True, "max_abs_err": err, "max_rel_err": max_rel,
+            "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bms, "bound_by": by}
+    print(f"[attention_qkv] {json.dumps(case)}")
+    return case
+
+
+def _layer_norm_case(name, *, m, d, dtype, eps, rng):
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_embedding_tpu_torch.ops import layernorm_cuda as lnc
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rng.standard_normal((m, d), dtype=np.float32) * 2 + 0.5).to(dev, dtype)
+    scale = torch.from_numpy(1 + 0.1 * rng.standard_normal(d, dtype=np.float32)).to(dev, dtype)
+    bias = torch.from_numpy(0.1 * rng.standard_normal(d, dtype=np.float32)).to(dev, dtype)
+    out = lnc.fused_layer_norm(x, scale, bias, eps=eps)
+    torch.cuda.synchronize()
+    plain = lnc.reference(x.float(), scale.float(), bias.float(), eps=eps)
+    err, max_rel, mean_rel = _rel_errs(out, plain)
+    del plain
+    tol = LN_REL_TOL_BF16 if dtype == torch.bfloat16 else LN_REL_TOL_F32
+    require(math.isfinite(err) and max_rel <= tol and mean_rel <= tol,
+            f"layernorm {name}: relative err max {max_rel}, mean {mean_rel} > {tol}")
+    ms = cuda_time_ms(lambda: lnc.fused_layer_norm(x, scale, bias, eps=eps))
+    plain_ms = cuda_time_ms(lambda: lnc.reference(x, scale, bias, eps=eps))
+    library_ms = cuda_time_ms(lambda: F.layer_norm(x, (d,), scale, bias, eps))
+    nbytes = x.element_size() * (2 * m * d + 2 * d)
+    bms, by = bound_ms(8.0 * m * d, nbytes, PEAK_F32_FLOPS)
+    case = {"case": name, "shape": [m, d], "dtype": str(dtype).replace("torch.", ""), "eps": eps,
+            "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+    print(f"[layernorm] {json.dumps(case)}")
+    return case
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
@@ -306,6 +453,40 @@ def phase_kernels() -> list[dict]:
         _maxsim_case("f32 masked padding edges", nq=37, tq=45, nd=29, td=75, dim=128, dtype=torch.float32,
                      masked=True, rng=rng),
     ]
+    # the --layer-impl fused encoder layer: ViT-L b64 (M 64*577), CLIP text
+    # b128 (M 128*77), ColPali's SigLIP-448 b8 (M 8*1024, LayerNorm eps 1e-6)
+    vit, txt, sig = 64 * 577, 128 * 77, 8 * 1024
+    prologue = [
+        _prologue_case("vit-l b64 qkv", m=vit, d=1024, n=3072, dtype=bf16, has_delta=True, act=None, rng=rng),
+        _prologue_case("vit-l b64 mlp", m=vit, d=1024, n=4096, dtype=bf16, has_delta=True, act="quick_gelu",
+                       rng=rng),
+        _prologue_case("clip text b128 qkv", m=txt, d=768, n=2304, dtype=bf16, has_delta=True, act=None, rng=rng),
+        _prologue_case("clip text b128 mlp", m=txt, d=768, n=3072, dtype=bf16, has_delta=True, act="quick_gelu",
+                       rng=rng),
+        _prologue_case("siglip-448 b8 mlp", m=sig, d=1152, n=4304, dtype=bf16, has_delta=True,
+                       act="gelu_pytorch_tanh", eps=1e-6, rng=rng),
+        _prologue_case("first sublayer, no delta (vit-l b64 qkv)", m=vit, d=1024, n=3072, dtype=bf16,
+                       has_delta=False, act=None, rng=rng),
+        _prologue_case("rms_gemma", m=4096, d=2048, n=1024, dtype=bf16, has_delta=True, act=None, norm="rms_gemma",
+                       eps=1e-6, rng=rng),
+        _prologue_case("f32 odd M and N", m=77, d=64, n=37, dtype=torch.float32, has_delta=True, act="gelu",
+                       rng=rng),
+    ]
+    attn_qkv = [
+        _attention_qkv_case("vit-l b64 stacked", b=64, h=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                            full_mask_rows=False, rng=rng),
+        _attention_qkv_case("clip text b128 stacked causal+mask", b=128, h=12, t=77, dh=64, dtype=bf16,
+                            causal=True, masked=True, full_mask_rows=False, rng=rng),
+        _attention_qkv_case("siglip-448 b8 stacked", b=8, h=16, t=1024, dh=72, dtype=bf16, causal=False,
+                            masked=False, full_mask_rows=False, rng=rng),
+        _attention_qkv_case("f32 stacked causal+mask, fully masked rows", b=4, h=4, t=77, dh=64,
+                            dtype=torch.float32, causal=True, masked=True, full_mask_rows=True, rng=rng),
+    ]
+    ln = [
+        _layer_norm_case("vit-l b64 rows", m=vit, d=1024, dtype=bf16, eps=1e-5, rng=rng),
+        _layer_norm_case("siglip-448 b8 rows", m=sig, d=1152, dtype=bf16, eps=1e-6, rng=rng),
+        _layer_norm_case("f32", m=1000, d=768, dtype=torch.float32, eps=1e-5, rng=rng),
+    ]
     root = "multimodal_embedding_tpu_torch/csrc"
     return [
         {"name": "fused_attention", "route": "cuda", "source": f"{root}/attention.cu",
@@ -317,6 +498,15 @@ def phase_kernels() -> list[dict]:
         {"name": "maxsim", "route": "cuda", "source": f"{root}/maxsim.cu",
          "replaces": "multimodal_embedding_tpu/ops/maxsim.py:128", **_headline(maxsim[0]),
          "cases": maxsim},
+        {"name": "fused_res_norm_matmul", "route": "cuda", "source": f"{root}/fused_ln_matmul.cu",
+         "replaces": "multimodal_embedding_tpu/ops/fused_ln_matmul.py:167", **_headline(prologue[0]),
+         "cases": prologue},
+        {"name": "fused_attention_qkv", "route": "cuda", "source": f"{root}/attention.cu",
+         "replaces": "multimodal_embedding_tpu/ops/attention_pallas.py:399", **_headline(attn_qkv[0]),
+         "cases": attn_qkv},
+        {"name": "fused_layer_norm", "route": "cuda", "source": f"{root}/layernorm.cu",
+         "replaces": "multimodal_embedding_tpu/ops/layernorm_pallas.py:38",
+         "path": "none (no path in the JAX package)", **_headline(ln[0]), "cases": ln},
     ]
 
 
@@ -328,6 +518,21 @@ def _headline(case: dict) -> dict:
 # --- phase 3 -------------------------------------------------------------------
 
 
+def _counters() -> dict:
+    """Kernel name -> (module, attribute) of its plain launch count."""
+    from multimodal_embedding_tpu_torch.ops import (
+        attention_cuda,
+        fused_ln_matmul_cuda,
+        layernorm_cuda,
+        maxsim_cuda,
+        preprocess_cuda,
+    )
+
+    return {"fused_attention": (attention_cuda, "launches"), "preprocess": (preprocess_cuda, "launches"),
+            "maxsim": (maxsim_cuda, "launches"), "fused_res_norm_matmul": (fused_ln_matmul_cuda, "launches"),
+            "fused_attention_qkv": (attention_cuda, "qkv_launches"), "fused_layer_norm": (layernorm_cuda, "launches")}
+
+
 def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[dict, dict, list]:
     """Run the port's CLI in-process with every launch count set to 0 just
     before; returns (the CSV row, the counts just after, the shapes and
@@ -335,9 +540,8 @@ def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[
     import pandas as pd
 
     from multimodal_embedding_tpu_torch.cli import main as cli
-    from multimodal_embedding_tpu_torch.ops import attention_cuda, maxsim_cuda, preprocess_cuda
 
-    mods = {"fused_attention": attention_cuda, "preprocess": preprocess_cuda, "maxsim": maxsim_cuda}
+    counters = _counters()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / csv_name
     out.unlink(missing_ok=True)
@@ -350,12 +554,12 @@ def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[
         return s_t2i, s_i2t, t
 
     cli.compute_score_matrices = recording
-    for m in mods.values():
-        m.launches = 0
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     try:
         rc = cli.main([*args, "--output", str(out)])
     finally:
-        counts = {n: m.launches for n, m in mods.items()}
+        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
         cli.compute_score_matrices = compute
     require(rc == 0, f"main path CLI {args} exited {rc}")
     df = pd.read_csv(out)
@@ -377,7 +581,9 @@ def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[
 def phase_main_path(kernels: list[dict]) -> None:
     import torch
 
-    _, clip_counts, _ = _main_path(CLI_ARGS, "main_path.csv", ("fused_attention", "preprocess"))
+    from multimodal_embedding_tpu_torch.models import layers
+
+    clip_row, clip_counts, _ = _main_path(CLI_ARGS, "main_path.csv", ("fused_attention", "preprocess"))
     torch.cuda.empty_cache()
     row, counts, scores = _main_path(COLPALI_CLI_ARGS, "colpali.csv", ("fused_attention", "preprocess", "maxsim"))
     n = 128
@@ -386,9 +592,32 @@ def phase_main_path(kernels: list[dict]) -> None:
     # the NaN-poisoned scores of a zero-pad / eps-free normalization give
     # R@10 = 100 with random weights
     require(float(row["T2I_R@10_mean"]) < 100.0, f"ColPali T2I R@10 {row['T2I_R@10_mean']}")
-    for k in kernels:  # this slice's main path, ColPali, runs every kernel
-        k["launches"] = counts[k["name"]]
-        k["launches_by_path"] = {"OpenAI-CLIP-L": clip_counts[k["name"]], "ColPali-v1.3": counts[k["name"]]}
+    torch.cuda.empty_cache()
+    try:
+        fused_row, fused_counts, _ = _main_path(
+            [*CLI_ARGS, "--layer-impl", "fused"], "main_path_fused.csv",
+            ("fused_res_norm_matmul", "fused_attention_qkv", "preprocess"))
+    finally:
+        layers.set_layer_impl("auto")
+    # every encoder layer of both towers: one stacked-QKV attention where the
+    # xla layer ran one fused_attention, and two prologues (24 x 2 per image
+    # batch, 12 x 2 per text batch)
+    layer_runs = clip_counts["fused_attention"]
+    require(fused_counts["fused_attention_qkv"] == layer_runs and fused_counts["fused_attention"] == 0
+            and fused_counts["fused_res_norm_matmul"] == 2 * layer_runs,
+            f"fused path launches {fused_counts}, want {layer_runs} encoder layers")
+    print(f"[main] OpenAI-CLIP-L QPS: --layer-impl xla {float(clip_row['QPS'])}, "
+          f"--layer-impl fused {float(fused_row['QPS'])} (same script run); fused launches "
+          f"prologue {fused_counts['fused_res_norm_matmul']}, stacked-QKV attention "
+          f"{fused_counts['fused_attention_qkv']}, preprocess {fused_counts['preprocess']}")
+    paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts}
+    for k in kernels:
+        # each kernel's launches on the path that runs it: ColPali for the
+        # first three, the fused CLIP-L path for this slice's; no path runs
+        # fused_layer_norm (0)
+        k["launches"] = (fused_counts if k["name"] in ("fused_res_norm_matmul", "fused_attention_qkv",
+                                                       "fused_layer_norm") else counts)[k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     torch.cuda.empty_cache()
 
 
@@ -430,9 +659,14 @@ def phase_bench_and_consistency() -> None:
           f"images={n_images} passes={passes} max_memory_allocated={torch.cuda.max_memory_allocated(dev)} "
           f"card={card_line()}")
 
-    # phase 5: the same weights, kernels in bf16 vs plain versions in f32
+    # phase 5: the same weights, kernels in bf16 (both layer impls) vs plain versions in f32
     few = images[:8]
     emb_kernel = engine.encode_images(few).embeddings
+    layers.set_layer_impl("fused")
+    try:
+        emb_fused = engine.encode_images(few).embeddings
+    finally:
+        layers.set_layer_impl("auto")
     model32 = copy.copy(model)
     model32.model = copy.deepcopy(model.model).float()
     layers.set_attention_impl("xla")  # the unmasked vision tower: the kernel's plain function
@@ -442,6 +676,12 @@ def phase_bench_and_consistency() -> None:
     cos = torch.nn.functional.cosine_similarity(emb_kernel.float(), emb_plain.float(), dim=-1)
     print(f"[consistency] per-image cosine kernel-bf16 vs plain-f32: {[round(float(c), 6) for c in cos]}")
     require(bool((cos >= COSINE_MIN).all()), f"cosine {float(cos.min())} < {COSINE_MIN}")
+    cos_f = torch.nn.functional.cosine_similarity(emb_fused.float(), emb_plain.float(), dim=-1)
+    cos_fx = torch.nn.functional.cosine_similarity(emb_fused.float(), emb_kernel.float(), dim=-1)
+    print(f"[consistency] per-image cosine --layer-impl fused kernel-bf16 vs plain-f32: "
+          f"{[round(float(c), 6) for c in cos_f]}; vs the xla-layer kernel-bf16 run: "
+          f"{[round(float(c), 6) for c in cos_fx]}")
+    require(bool((cos_f >= COSINE_MIN).all()), f"fused cosine {float(cos_f.min())} < {COSINE_MIN}")
 
 
 def phase_colpali_consistency() -> None:

@@ -96,7 +96,9 @@ def parse_args(argv=None):
                    help="Device preprocessing: auto (the CUDA kernel on the card, "
                         "plain matmuls on the CPU), plain matmuls, or the kernel ('pallas')")
     p.add_argument("--layer-impl", type=str, default="auto", choices=["auto", "xla", "fused"],
-                   help="Encoder layer: plain ops (fused: not yet ported)")
+                   help="Encoder layer: auto and xla (plain ops), or fused (the "
+                        "residual+LayerNorm+matmul prologue CUDA kernel feeding the "
+                        "stacked-QKV attention kernel; their plain versions on the CPU)")
     p.add_argument("--native-cache-dir", type=str, default=None, help="Not yet ported")
     p.add_argument("--tensor-parallel", type=int, default=1, help="Values above 1: not yet ported")
     p.add_argument("--sequence-parallel", type=int, default=1, help="Values above 1: not yet ported")
@@ -105,7 +107,6 @@ def parse_args(argv=None):
 
 def _reject_unported(args) -> None:
     unported = {
-        "--layer-impl fused": args.layer_impl == "fused",
         "--attention-impl flash": args.attention_impl == "flash",
         "--tensor-parallel above 1": args.tensor_parallel > 1,
         "--sequence-parallel above 1": args.sequence_parallel > 1,
@@ -245,9 +246,10 @@ def main(argv=None) -> int:
     logger.info(f"BENCHMARK START (V29 STATISTICAL, PyTorch/CUDA) - Output: {args.output}")
     logger.info(f"Bootstrap iterations: {args.bootstrap_iterations}; device: {device}")
 
-    from ..models.layers import set_attention_impl
+    from ..models.layers import set_attention_impl, set_layer_impl
 
     set_attention_impl(args.attention_impl)
+    set_layer_impl(args.layer_impl)
 
     records = load_benchmark_dataset(
         args.dataset, cache_dir=args.cache_dir, workers=args.workers,

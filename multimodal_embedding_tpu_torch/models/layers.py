@@ -76,6 +76,31 @@ def attention_impl_for(x: torch.Tensor) -> str:
     return _ATTENTION_IMPL
 
 
+# Encoder-layer implementation:
+#  - "xla":   each EncoderLayer as separate PyTorch ops;
+#  - "fused": the residual+LN+matmul prologue kernel
+#             (ops/fused_ln_matmul_cuda.py) feeding the stacked-QKV attention
+#             kernel (ops/attention_cuda.py:fused_attention_qkv); on CPU
+#             tensors their plain versions;
+#  - "auto":  "xla", as in the JAX package. The JAX package's reason is a TPU
+#             measurement and does not carry over; no H100 measurement has
+#             chosen between the two yet (PERF.md).
+LAYER_IMPLS = ("auto", "xla", "fused")
+_LAYER_IMPL = "auto"
+
+
+def set_layer_impl(impl: str) -> None:
+    global _LAYER_IMPL
+    if impl not in LAYER_IMPLS:
+        raise ValueError(f"layer impl must be one of {LAYER_IMPLS}, not {impl!r}")
+    _LAYER_IMPL = impl
+
+
+def get_layer_impl() -> str:
+    """Resolved implementation name (never "auto")."""
+    return "xla" if _LAYER_IMPL == "auto" else _LAYER_IMPL
+
+
 def attention_core(
     qf: torch.Tensor,
     kf: torch.Tensor,
@@ -215,6 +240,40 @@ class Encoder(nn.Module):
         )
 
     def forward(self, x, *, causal: bool = False, mask: torch.Tensor | None = None):
+        if get_layer_impl() == "fused":
+            return self._fused_forward(x, causal=causal, mask=mask)
         for layer in self.layers:
             x = layer(x, causal=causal, mask=mask)
         return x
+
+    def _fused_forward(self, x, *, causal: bool, mask: torch.Tensor | None):
+        """The pre-LN stack on the fused prologue kernel (the JAX package's
+        ``_fused_encoder_stack``). Each layer runs as: one prologue giving
+        (residual stream, stacked QKV), attention reading q, k and v straight
+        out of the stacked projection, the output projection, a second
+        prologue giving (residual stream, activated MLP hidden), and fc2. The
+        loop carries ``(h, delta)``, the residual stream and the sublayer
+        output not yet added, so every residual add happens inside a kernel
+        that reads both; one add follows the last layer. The first layer's
+        delta is None (JAX adds zeros: the same values)."""
+        from ..ops.attention_cuda import fused_attention_qkv
+        from ..ops.fused_ln_matmul_cuda import fused_res_norm_matmul
+
+        d = x.shape[-1]
+        use_qkv_kernel = attention_impl_for(x) == "pallas"
+        h, delta = x, None
+        for layer in self.layers:
+            attn = layer.attn
+            w_qkv = torch.cat([attn.q.w, attn.k.w, attn.v.w], dim=1)
+            b_qkv = torch.cat([attn.q.b, attn.k.b, attn.v.b])
+            h, qkv = fused_res_norm_matmul(h, delta, layer.ln1.scale, layer.ln1.bias, w_qkv, b_qkv,
+                                           norm="ln", eps=layer.ln1.eps)
+            if use_qkv_kernel:
+                a = fused_attention_qkv(qkv, mask, causal=causal, num_heads=attn.n_heads).to(h.dtype)
+            else:
+                a = attention_core(qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :], attn.n_heads,
+                                   causal=causal, mask=mask)
+            h, mlp_h = fused_res_norm_matmul(h, attn.o(a), layer.ln2.scale, layer.ln2.bias, layer.mlp.fc1.w,
+                                             layer.mlp.fc1.b, norm="ln", eps=layer.ln2.eps, act=layer.mlp.act)
+            delta = layer.mlp.fc2(mlp_h)
+        return h if delta is None else h + delta

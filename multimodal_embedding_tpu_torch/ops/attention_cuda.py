@@ -2,7 +2,8 @@
 (``csrc/attention.cu``) and its plain PyTorch version.
 
 Counterpart of ``multimodal_embedding_tpu/ops/attention_pallas.py:
-fused_attention``. Semantics of both versions: f32 QK^T, finite ``-1e30``
+fused_attention`` and ``fused_attention_qkv`` (the same kernel reading q, k
+and v out of one stacked projection). Semantics of both versions: f32 QK^T, finite ``-1e30``
 masking of invalid keys (key mask and/or causal), f32 softmax against the
 whole key row, probabilities cast to V's dtype before an f32-accumulated PV,
 the softmax denominator applied after PV, exact zeros for a fully masked row,
@@ -26,8 +27,10 @@ from . import build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
-# Kernel launches made by fused_attention (a plain count, read by chip_smoke.py).
+# Kernel launches made by fused_attention and by fused_attention_qkv, each
+# counted apart (plain counts, read by chip_smoke.py).
 launches = 0
+qkv_launches = 0
 
 _c = ctypes
 _ARGTYPES = (
@@ -110,8 +113,8 @@ def _token_head_strides(x: torch.Tensor, layout: str, dh: int) -> tuple[int, int
     return x.stride(0), x.stride(2), x.stride(1)
 
 
-def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
-    global launches
+def _run(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
+    """Launch the kernel (uncounted: each caller counts its own launches)."""
     b, _, _, tq, tk, dh = _geometry(q, k, v, layout, h, kvh)
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"attention kernel takes bfloat16 or float32, not {q.dtype}")
@@ -145,6 +148,12 @@ def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
         int(causal), float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "attention kernel")
+    return out
+
+
+def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
+    global launches
+    out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
     launches += 1
     return out
 
@@ -194,3 +203,64 @@ def fused_attention(
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
     return _FusedAttention.apply(q, k, v, key_mask, causal, float(sm_scale), layout, h, kvh)
+
+
+def _split_qkv(qkv: torch.Tensor, h: int, kvh: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Views of q, k and v inside a stacked [B, T, (H + 2*KVH)*Dh] projection:
+    column offsets 0, H*Dh and (H + KVH)*Dh, token stride (H + 2*KVH)*Dh."""
+    dh = qkv.shape[-1] // (h + 2 * kvh)
+    return qkv[..., : h * dh], qkv[..., h * dh : (h + kvh) * dh], qkv[..., (h + kvh) * dh :]
+
+
+def _plain_qkv(qkv, km, causal, sm_scale, h, kvh):
+    return _plain(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
+
+
+class _FusedAttentionQKV(torch.autograd.Function):
+    """The kernel on three views of the stacked projection (no copy); the
+    backward recomputes through the plain version."""
+
+    @staticmethod
+    def forward(ctx, qkv, km, causal, sm_scale, h, kvh):
+        global qkv_launches
+        ctx.save_for_backward(qkv, km)
+        ctx.args = (causal, sm_scale, h, kvh)
+        with torch.profiler.record_function("fused_attention_qkv"):
+            out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
+        qkv_launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, km = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            (grad,) = torch.autograd.grad(_plain_qkv(x, km, *ctx.args), x, g)
+        return grad, None, None, None, None, None
+
+
+def fused_attention_qkv(
+    qkv: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    *,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    num_heads: int,
+    num_kv_heads: int | None = None,
+) -> torch.Tensor:
+    """Self-attention over a stacked projection ``qkv`` [B, T, (H + 2*KVH)*Dh]
+    (the prologue kernel's q|k|v column concat), read in place through three
+    strided views. key_mask [B, T] (nonzero = attend). Returns [B, T, H*Dh]
+    in qkv's dtype; numerics of ``fused_attention(layout="packed")``."""
+    h = num_heads
+    kvh = h if num_kv_heads is None else num_kv_heads
+    if qkv.dim() != 3 or qkv.shape[-1] % (h + 2 * kvh):
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not a stacked projection of {h}/{kvh} heads")
+    dh = qkv.shape[-1] // (h + 2 * kvh)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(dh)
+    if qkv.device.type == "cpu":
+        return _plain_qkv(qkv, key_mask, causal, sm_scale, h, kvh)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_attention_qkv runs on cuda (kernel) or cpu (plain), not {qkv.device}")
+    return _FusedAttentionQKV.apply(qkv, key_mask, causal, float(sm_scale), h, kvh)

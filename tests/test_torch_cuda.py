@@ -9,14 +9,18 @@ Tolerances as in chip_smoke.py: attention 1e-5 in f32 and 2e-2 in bf16
 against the plain version in f32 on the same inputs; preprocess at least
 99.9% bit-equal and within one quantization level; MaxSim max|d|/max|plain|
 at most 1e-5 in f32 and 1e-4 in bf16 (bf16 products are exact in f32, so
-only the order of the f32 sums differs).
+only the order of the f32 sums differs); the prologue's x_new bit-equal to
+the plain version in the same dtype and its y, and LayerNorm, within
+max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 against the plain version in
+f32; stacked-QKV attention bit-equal to the attention kernel on contiguous
+copies of the three slices.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from multimodal_embedding_tpu_torch.ops import attention_cuda, maxsim_cuda
+from multimodal_embedding_tpu_torch.ops import attention_cuda, fused_ln_matmul_cuda, layernorm_cuda, maxsim_cuda
 from multimodal_embedding_tpu_torch.ops.preprocess import PreprocessConfig, make_preprocess_fn, scale_shift
 from multimodal_embedding_tpu_torch.ops.preprocess_cuda import make_preprocess_cuda_fn
 
@@ -137,3 +141,129 @@ def test_maxsim_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     big = torch.zeros(2, 3, 256, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         maxsim_cuda.maxsim_cuda(big, big)
+
+
+def _rel(got, want):
+    return float((got.float() - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,d,n,has_delta,act,norm", [
+    (130, 1024, 384, True, None, "ln"),  # ViT-L width, rows over three row tiles
+    (77, 768, 520, True, "quick_gelu", "ln"),  # CLIP text width, N past a tile edge
+    (33, 1152, 4304 // 8, False, "gelu_pytorch_tanh", "ln"),  # SigLIP width, no delta
+    (17, 64, 48, True, "gelu", "ln"),
+    (24, 40, 37, True, None, "rms_gemma"),  # D not a multiple of 16, odd N
+])
+def test_prologue_kernel_matches_plain(dev, dtype, tol, m, d, n, has_delta, act, norm):
+    rng = np.random.default_rng(4)
+
+    def rand(shape, s=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * s).to(dev, dtype)
+
+    x, delta = rand((m, d)), rand((m, d)) if has_delta else None
+    gamma = rand((d,), 0.1)
+    beta, b = (rand((d,), 0.1), rand((n,), 0.1)) if norm == "ln" else (None, None)
+    w = rand((d, n), d ** -0.5)
+    before = fused_ln_matmul_cuda.launches
+    x_new, y = fused_ln_matmul_cuda.fused_res_norm_matmul(x, delta, gamma, beta, w, b, norm=norm, act=act)
+    torch.cuda.synchronize()
+    assert fused_ln_matmul_cuda.launches == before + 1
+    want_x, _ = fused_ln_matmul_cuda.reference(x, delta, gamma, beta, w, b, norm=norm, act=act)
+    f32 = [None if t is None else t.float() for t in (x, delta, gamma, beta, w, b)]
+    _, want_y = fused_ln_matmul_cuda.reference(*f32, norm=norm, act=act)
+    assert torch.equal(x_new, want_x)
+    assert y.dtype == dtype and y.shape == (m, n)
+    assert _rel(y, want_y) <= tol
+
+
+def test_prologue_gradient_recomputes_through_plain_version(dev):
+    rng = np.random.default_rng(5)
+    ins = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.3).to(dev)
+           for s in ((2, 9, 64), (2, 9, 64), (64,), (64,), (64, 40), (40,))]
+    grads = []
+    for fn in (fused_ln_matmul_cuda.fused_res_norm_matmul, fused_ln_matmul_cuda.reference):
+        xs = [t.clone().requires_grad_() for t in ins]
+        x_new, y = fn(*xs, norm="ln", eps=1e-5, act="quick_gelu")
+        ((x_new ** 2).sum() + (y ** 2).sum()).backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_prologue_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(4, 12, device=dev)  # D 12: not a multiple of 8
+    with pytest.raises(ValueError):
+        fused_ln_matmul_cuda.fused_res_norm_matmul(x, None, torch.ones(12, device=dev), None,
+                                                   torch.zeros(12, 8, device=dev), None)
+    x16 = torch.zeros(4, 16, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fused_ln_matmul_cuda.fused_res_norm_matmul(x16, None, torch.ones(16, device=dev, dtype=torch.float16),
+                                                   None, torch.zeros(16, 8, device=dev, dtype=torch.float16), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh,t,dh,causal,masked", [
+    (16, 16, 577, 64, False, False),  # ViT-L
+    (12, 12, 77, 64, True, True),  # CLIP text
+    (16, 16, 64, 72, False, False),  # SigLIP's Dh 72
+    (8, 2, 40, 32, True, True),  # grouped-query stacking
+])
+def test_attention_qkv_kernel_equals_attention_on_copies(dev, dtype, h, kvh, t, dh, causal, masked):
+    rng = np.random.default_rng(6)
+    b = 2
+    qkv = torch.from_numpy(rng.standard_normal((b, t, (h + 2 * kvh) * dh), dtype=np.float32)).to(dev, dtype)
+    km = None
+    if masked:
+        km = torch.from_numpy((np.arange(t)[None, :] < np.array([[t], [t // 3]])).astype(np.int32)).to(dev)
+    before = attention_cuda.qkv_launches
+    got = attention_cuda.fused_attention_qkv(qkv, km, causal=causal, num_heads=h, num_kv_heads=kvh)
+    assert attention_cuda.qkv_launches == before + 1
+    q, k, v = (s.contiguous() for s in attention_cuda._split_qkv(qkv, h, kvh))
+    want = attention_cuda.fused_attention(q, k, v, km, causal=causal, layout="packed", num_heads=h,
+                                          num_kv_heads=kvh)
+    assert torch.equal(got, want)
+
+
+def test_attention_qkv_gradient_recomputes_through_plain_version(dev):
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.standard_normal((2, 33, 3 * 128), dtype=np.float32)).to(dev)
+    km = torch.ones(2, 33, dtype=torch.int32, device=dev)
+    km[1, 20:] = 0
+    grads = []
+    for kernel in (True, False):
+        x = qkv.clone().requires_grad_()
+        if kernel:
+            out = attention_cuda.fused_attention_qkv(x, km, causal=True, num_heads=4)
+        else:
+            out = attention_cuda._plain_qkv(x, km, True, 32 ** -0.5, 4, 4)
+        (out ** 2).sum().backward()
+        grads.append(x.grad)
+    assert float((grads[0] - grads[1]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,d", [(130, 1024), (37, 1152), (9, 40), (5, 2048), (3, 6144)])
+def test_layer_norm_kernel_matches_plain(dev, dtype, tol, m, d):
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((m, d), dtype=np.float32) * 2 + 0.5).to(dev, dtype)
+    s, b = (torch.from_numpy(rng.standard_normal(d, dtype=np.float32)).to(dev, dtype) for _ in range(2))
+    before = layernorm_cuda.launches
+    got = layernorm_cuda.fused_layer_norm(x, s, b, eps=1e-6)
+    torch.cuda.synchronize()
+    assert layernorm_cuda.launches == before + 1
+    want = layernorm_cuda.reference(x.float(), s.float(), b.float(), eps=1e-6)
+    assert got.dtype == dtype
+    assert _rel(got, want) <= tol
+
+
+def test_layer_norm_gradient_recomputes_through_plain_version(dev):
+    rng = np.random.default_rng(9)
+    ins = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev) for s in ((7, 64), (64,), (64,))]
+    grads = []
+    for fn in (layernorm_cuda.fused_layer_norm, layernorm_cuda.reference):
+        xs = [t.clone().requires_grad_() for t in ins]
+        (fn(*xs, eps=1e-5) ** 2).sum().backward()
+        grads.append([t.grad for t in xs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4

@@ -125,7 +125,7 @@ def test_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--layer-impl", "fused"], ["--attention-impl", "flash"], ["--tensor-parallel", "2"],
+    ["--attention-impl", "flash"], ["--tensor-parallel", "2"],
     ["--sequence-parallel", "2"], ["--transport", "host"], ["--streaming-encode"], [],
 ])
 def test_cli_rejects_unported_flags(tmp_path, flags):
@@ -133,6 +133,11 @@ def test_cli_rejects_unported_flags(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         tcli.main(["--device", "cpu", "--dataset", "synthetic", "--sample-size", "4",
                    "--output", str(tmp_path / "x.csv"), *extra, *flags])
+
+
+@pytest.mark.parametrize("flags", [["--layer-impl", "fused"], ["--layer-impl", "xla"]])
+def test_cli_accepts_ported_flags(flags):
+    tcli._reject_unported(tcli.parse_args(["--device", "cpu", "--debug-models", *flags]))
 
 
 def _imports(path: Path) -> set[str]:
