@@ -8,9 +8,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
      nvcc per source, all at once) and print the build seconds;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (OpenAI-CLIP-L, ColPali-v1.3 and the fused encoder
-     layer's), with the tolerances stated below, and time both, the one
+     layer's, plus attention at ViT-H's Dh 80 and at a 4096-key row), with
+     the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
-     one) and the least time the card could take (``bound_ms``);
+     one) and the least time the card could take (``bound_ms``); for
+     attention also the kernel's device time alone (``device_ms``);
   3. the main paths at full width, each through the port's CLI in-process
      on the synthetic dataset at the model's published architecture with
      random weights: OpenAI-CLIP-L (dense), ColPali-v1.3 (multi-vector,
@@ -50,6 +52,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
+ATTN_KERNELS = ("flash_kernel", "attn_f32_kernel")  # csrc/attention.cu's bf16 and f32 kernels
 ATTN_TOL_BF16 = 2e-2  # bf16 kernel vs the f32 plain version on the same bf16 inputs
 ATTN_TOL_F32 = 1e-5
 # Relative limits, max|d|/max|plain| and mean|d|/mean|plain|. Rounding p and
@@ -107,6 +110,24 @@ def card_line() -> str:
 def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def device_ms(fn, kernels: tuple[str, ...], iters: int = 10) -> float:
+    """Mean device time of the kernels whose name holds one of ``kernels`` per
+    call of ``fn``, from a torch.profiler window of ``iters`` calls: what ``ms`` reads
+    less the host's time between launches, which dominates calls under about
+    0.2 ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages() if any(k in e.key for k in kernels))
+    require(total_us > 0, f"profiler saw no launch of {kernels}")
+    return total_us / iters / 1e3
 
 
 # --- phase 1 -------------------------------------------------------------------
@@ -175,6 +196,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
             require(bool((o4[0, :, 0] == 0).all()), f"attention {name}: fully masked row not exact zeros")
 
     ms = cuda_time_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
+    dev_ms = device_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw), ATTN_KERNELS)
     plain_ms = cuda_time_ms(lambda: attention_cuda._plain(q, k, v, km, causal, scale, layout, h, kvh))
 
     def bhtd(x, nh):
@@ -198,7 +220,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     case = {"case": name, "shape": [b, h, kvh, t, dh], "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
     print(f"[attention] {json.dumps(case)}")
     return case
 
@@ -368,6 +390,7 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
     if full_mask_rows:
         require(bool((out[-1] == 0).all()), f"attention_qkv {name}: fully masked sequence not exact zeros")
     ms = cuda_time_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw))
+    dev_ms = device_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw), ATTN_KERNELS)
     plain_ms = cuda_time_ms(lambda: ac._plain_qkv(qkv, km, causal, scale, h, h))
     q4, k4, v4 = (x.reshape(b, t, h, dh).transpose(1, 2) for x in (q, k, v))  # views, no copy
     valid = torch.ones(b, 1, t, t, dtype=torch.bool, device=dev)
@@ -384,7 +407,7 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
     case = {"case": name, "shape": [b, t, 3 * h * dh], "heads": h, "dtype": str(dtype).replace("torch.", ""),
             "bit_equal_to_fused_attention": True, "max_abs_err": err, "max_rel_err": max_rel,
             "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
     print(f"[attention_qkv] {json.dumps(case)}")
     return case
 
@@ -442,6 +465,13 @@ def phase_kernels() -> list[dict]:
                         causal=False, masked=False, layout="packed", full_mask_rows=False, rng=rng),
         _attention_case("colpali gemma text packed mqa+mask", b=128, h=8, kvh=1, t=32, dh=256, dtype=bf16,
                         causal=False, masked=True, layout="packed", full_mask_rows=False, rng=rng),
+        # ViT-H/14 at 224 (Dh 80, 257 tokens): the head-dim bucket between
+        # CLIP's 64 and Gemma's 256; a key row of 4096, past the f32 kernel's
+        # shared-memory limit
+        _attention_case("vit-h packed", b=64, h=16, kvh=16, t=257, dh=80, dtype=bf16, causal=False,
+                        masked=False, layout="packed", full_mask_rows=False, rng=rng),
+        _attention_case("long key row bhtd", b=1, h=2, kvh=2, t=4096, dh=64, dtype=bf16, causal=False,
+                        masked=False, layout="bhtd", full_mask_rows=False, rng=rng),
     ]
     pre = [_preprocess_case(h, w, 64, rng) for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
     pre.append(_preprocess_case(480, 640, 8, rng, model="ColPali-v1.3"))

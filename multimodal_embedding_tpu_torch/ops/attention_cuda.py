@@ -9,6 +9,13 @@ whole key row, probabilities cast to V's dtype before an f32-accumulated PV,
 the softmax denominator applied after PV, exact zeros for a fully masked row,
 and grouped-query attention with KVH | H.
 
+Where the kernel keeps its logits: in bf16, in registers. A block of 4 warps
+takes 64 query rows, each warp 16 of them end to end, and sweeps the key
+tiles twice (the row max, then p, its sum and PV with ``mma.sync``), so its
+shared memory holds Q and a K/V ring and does not grow with Tk; any key row
+length is taken. In f32 (tests and chip_smoke.py only) it writes the f32
+logits of the whole key row to shared memory, which caps Tk at about 3300.
+
 :func:`fused_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version
 (:func:`sdpa_reference`) only for tensors that lie on the CPU. Like the JAX

@@ -44,6 +44,13 @@ def dev():
     ("packed", 16, 16, 1024, 72, False, False),  # SigLIP-448 in ColPali
     ("packed", 8, 1, 1030, 256, False, False),  # Gemma over image + suffix tokens
     ("packed", 8, 1, 32, 256, False, True),  # Gemma text sweep: key mask, not causal
+    # T past a 64-row query tile and a 64- or 32-key tile; each padded head
+    # dim of the bf16 kernel (40 -> 64, 80, 128, 256)
+    ("packed", 4, 4, 65, 40, False, True),
+    ("bhtd", 4, 2, 33, 80, True, True),
+    ("packed", 4, 4, 65, 128, True, False),
+    ("bhtd", 4, 1, 65, 256, False, True),
+    ("packed", 2, 1, 33, 256, True, True),
 ])
 def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, causal, masked):
     rng = np.random.default_rng(0)
@@ -60,6 +67,40 @@ def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, 
     want = attention_cuda._plain(q.float(), k.float(), v.float(), km, causal, scale, layout, h, kvh)
     assert got.dtype == dtype
     assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("layout,h,kvh,t,dh", [
+    ("packed", 4, 4, 77, 64),
+    ("bhtd", 4, 2, 100, 72),
+    ("packed", 8, 1, 65, 256),
+])
+def test_attention_bf16_fully_masked_rows_are_exact_zeros(dev, layout, h, kvh, t, dh):
+    rng = np.random.default_rng(10)
+    b = 3
+    shapes = ([(b, t, h * dh), (b, t, kvh * dh), (b, t, kvh * dh)] if layout == "packed"
+              else [(b, h, t, dh), (b, kvh, t, dh), (b, kvh, t, dh)])
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev, torch.bfloat16) for s in shapes)
+    km_np = (np.arange(t)[None, :] < np.array([[t], [t // 2], [t]])).astype(np.int32)
+    km_np[0, 0] = 0  # causal: query row 0 of sequence 0 sees no valid key
+    km_np[2] = 0  # every row of sequence 2 is fully masked
+    km = torch.from_numpy(km_np).to(dev)
+    kw = dict(causal=True, layout=layout, num_heads=h, num_kv_heads=kvh)
+    got = attention_cuda.fused_attention(q, k, v, km, **kw)
+    want = attention_cuda._plain(q.float(), k.float(), v.float(), km, True, dh ** -0.5, layout, h, kvh)
+    o4 = got if layout == "bhtd" else got.reshape(b, t, h, dh).transpose(1, 2)
+    assert bool((o4[2] == 0).all())
+    assert bool((o4[0, :, 0] == 0).all())
+    assert float((got.float() - want).abs().max()) <= 2e-2
+
+
+def test_attention_bf16_takes_a_long_key_row(dev):
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 4096, 64), dtype=np.float32)).to(dev, torch.bfloat16)
+               for _ in range(3))
+    got = attention_cuda.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = attention_cuda._plain(q.float(), k.float(), v.float(), None, False, 0.125, "bhtd", 2, 2)
+    assert float((got.float() - want).abs().max()) <= 2e-2
 
 
 def test_attention_gradient_recomputes_through_plain_version(dev):
