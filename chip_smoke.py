@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --attention-cases   # the build and phase 2's attention cases only
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. build the CUDA kernels of ``multimodal_embedding_tpu_torch/csrc`` (one
@@ -52,7 +53,6 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-ATTN_KERNELS = ("flash_kernel", "attn_f32_kernel")  # csrc/attention.cu's bf16 and f32 kernels
 ATTN_TOL_BF16 = 2e-2  # bf16 kernel vs the f32 plain version on the same bf16 inputs
 ATTN_TOL_F32 = 1e-5
 # Relative limits, max|d|/max|plain| and mean|d|/mean|plain|. Rounding p and
@@ -112,22 +112,26 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_ms(fn, kernels: tuple[str, ...], iters: int = 10) -> float:
-    """Mean device time of the kernels whose name holds one of ``kernels`` per
-    call of ``fn``, from a torch.profiler window of ``iters`` calls: what ``ms`` reads
-    less the host's time between launches, which dominates calls under about
-    0.2 ms."""
+def device_ms(fn, iters: int = 10, windows: int = 3) -> float:
+    """Mean device time of the kernels ``fn`` launches per call, from a
+    torch.profiler window of ``iters`` calls: what ``ms`` reads less the host's
+    time before the launch, which dominates calls under about 0.2 ms. CUPTI
+    now and then hands back a window with no kernel record in it; such a
+    window is taken again, up to ``windows`` in all."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages() if any(k in e.key for k in kernels))
-    require(total_us > 0, f"profiler saw no launch of {kernels}")
-    return total_us / iters / 1e3
+    for _ in range(windows):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        total_us = sum(e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total_us > 0:
+            return total_us / iters / 1e3
+    raise RuntimeError(f"profiler saw no kernel launch in {windows} windows; events: {[e.key for e in events]}")
 
 
 # --- phase 1 -------------------------------------------------------------------
@@ -196,7 +200,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
             require(bool((o4[0, :, 0] == 0).all()), f"attention {name}: fully masked row not exact zeros")
 
     ms = cuda_time_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
-    dev_ms = device_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw), ATTN_KERNELS)
+    dev_ms = device_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
     plain_ms = cuda_time_ms(lambda: attention_cuda._plain(q, k, v, km, causal, scale, layout, h, kvh))
 
     def bhtd(x, nh):
@@ -390,7 +394,7 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
     if full_mask_rows:
         require(bool((out[-1] == 0).all()), f"attention_qkv {name}: fully masked sequence not exact zeros")
     ms = cuda_time_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw))
-    dev_ms = device_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw), ATTN_KERNELS)
+    dev_ms = device_ms(lambda: ac.fused_attention_qkv(qkv, km, **kw))
     plain_ms = cuda_time_ms(lambda: ac._plain_qkv(qkv, km, causal, scale, h, h))
     q4, k4, v4 = (x.reshape(b, t, h, dh).transpose(1, 2) for x in (q, k, v))  # views, no copy
     valid = torch.ones(b, 1, t, t, dtype=torch.bool, device=dev)
@@ -443,36 +447,60 @@ def _layer_norm_case(name, *, m, d, dtype, eps, rng):
     return case
 
 
+def attention_cases() -> list[tuple[str, dict]]:
+    import torch
+
+    bf16 = torch.bfloat16
+    return [
+        ("vit-l packed", dict(b=64, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                              layout="packed", full_mask_rows=False)),
+        ("clip-l text packed causal+mask", dict(b=128, h=12, kvh=12, t=77, dh=64, dtype=bf16, causal=True,
+                                                masked=True, layout="packed", full_mask_rows=False)),
+        ("gqa bhtd causal+mask, fully masked rows", dict(b=4, h=8, kvh=2, t=100, dh=64, dtype=bf16, causal=True,
+                                                         masked=True, layout="bhtd", full_mask_rows=True)),
+        ("f32 packed causal+mask", dict(b=4, h=4, kvh=4, t=77, dh=64, dtype=torch.float32, causal=True,
+                                        masked=True, layout="packed", full_mask_rows=True)),
+        # ColPali-v1.3: SigLIP-448 (Dh 72), Gemma MQA (Dh 256) over 1024 image
+        # + 6 suffix tokens, and the Gemma text sweep (key mask, not causal)
+        ("colpali siglip-448 packed", dict(b=8, h=16, kvh=16, t=1024, dh=72, dtype=bf16, causal=False,
+                                           masked=False, layout="packed", full_mask_rows=False)),
+        ("colpali gemma image packed mqa", dict(b=8, h=8, kvh=1, t=1030, dh=256, dtype=bf16, causal=False,
+                                                masked=False, layout="packed", full_mask_rows=False)),
+        ("colpali gemma text packed mqa+mask", dict(b=128, h=8, kvh=1, t=32, dh=256, dtype=bf16, causal=False,
+                                                    masked=True, layout="packed", full_mask_rows=False)),
+        # ViT-H/14 at 224 (Dh 80, 257 tokens): the head-dim bucket between
+        # CLIP's 64 and Gemma's 256; a key row of 4096, past the f32 kernel's
+        # shared-memory limit
+        ("vit-h packed", dict(b=64, h=16, kvh=16, t=257, dh=80, dtype=bf16, causal=False, masked=False,
+                              layout="packed", full_mask_rows=False)),
+        ("long key row bhtd", dict(b=1, h=2, kvh=2, t=4096, dh=64, dtype=bf16, causal=False, masked=False,
+                                   layout="bhtd", full_mask_rows=False)),
+    ]
+
+
+def run_attention_cases() -> int:
+    """``--attention-cases``: the build, then phase 2's attention cases alone,
+    each printed; a case that fails is printed with its error and the run
+    exits 1, with no result line. A copy of this script placed in another
+    checkout of the port times that checkout's kernel at the same shapes."""
+    phase_build()
+    rng = np.random.default_rng(0)
+    failed = 0
+    for name, kw in attention_cases():
+        try:
+            _attention_case(name, **kw, rng=rng)
+        except RuntimeError as e:
+            failed += 1
+            print(f"[attention] {json.dumps({'case': name, 'error': str(e)})}")
+    return 1 if failed else 0
+
+
 def phase_kernels() -> list[dict]:
     import torch
 
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
-    attn = [
-        _attention_case("vit-l packed", b=64, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False,
-                        masked=False, layout="packed", full_mask_rows=False, rng=rng),
-        _attention_case("clip-l text packed causal+mask", b=128, h=12, kvh=12, t=77, dh=64, dtype=bf16,
-                        causal=True, masked=True, layout="packed", full_mask_rows=False, rng=rng),
-        _attention_case("gqa bhtd causal+mask, fully masked rows", b=4, h=8, kvh=2, t=100, dh=64,
-                        dtype=bf16, causal=True, masked=True, layout="bhtd", full_mask_rows=True, rng=rng),
-        _attention_case("f32 packed causal+mask", b=4, h=4, kvh=4, t=77, dh=64, dtype=torch.float32,
-                        causal=True, masked=True, layout="packed", full_mask_rows=True, rng=rng),
-        # ColPali-v1.3: SigLIP-448 (Dh 72), Gemma MQA (Dh 256) over 1024 image
-        # + 6 suffix tokens, and the Gemma text sweep (key mask, not causal)
-        _attention_case("colpali siglip-448 packed", b=8, h=16, kvh=16, t=1024, dh=72, dtype=bf16,
-                        causal=False, masked=False, layout="packed", full_mask_rows=False, rng=rng),
-        _attention_case("colpali gemma image packed mqa", b=8, h=8, kvh=1, t=1030, dh=256, dtype=bf16,
-                        causal=False, masked=False, layout="packed", full_mask_rows=False, rng=rng),
-        _attention_case("colpali gemma text packed mqa+mask", b=128, h=8, kvh=1, t=32, dh=256, dtype=bf16,
-                        causal=False, masked=True, layout="packed", full_mask_rows=False, rng=rng),
-        # ViT-H/14 at 224 (Dh 80, 257 tokens): the head-dim bucket between
-        # CLIP's 64 and Gemma's 256; a key row of 4096, past the f32 kernel's
-        # shared-memory limit
-        _attention_case("vit-h packed", b=64, h=16, kvh=16, t=257, dh=80, dtype=bf16, causal=False,
-                        masked=False, layout="packed", full_mask_rows=False, rng=rng),
-        _attention_case("long key row bhtd", b=1, h=2, kvh=2, t=4096, dh=64, dtype=bf16, causal=False,
-                        masked=False, layout="bhtd", full_mask_rows=False, rng=rng),
-    ]
+    attn = [_attention_case(name, **kw, rng=rng) for name, kw in attention_cases()]
     pre = [_preprocess_case(h, w, 64, rng) for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
     pre.append(_preprocess_case(480, 640, 8, rng, model="ColPali-v1.3"))
     maxsim = [
@@ -774,6 +802,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:] == ["--attention-cases"]:
+        print(card_line())
+        return run_attention_cases()
     t0 = time.perf_counter()
     phase_build()
     kernels = phase_kernels()

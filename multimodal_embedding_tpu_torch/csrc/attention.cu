@@ -86,16 +86,6 @@ constexpr size_t kSmemTwoPerSM = 113 * 1024;
 constexpr int kFlashWarps = 4;
 constexpr int kFlashThreads = kFlashWarps * 32;
 constexpr int kBr = kFlashWarps * 16;  // query rows per block, 16 per warp
-// Its two tuning knobs, for a padded head dim up to 128 (Dh 256 keeps 32-key
-// tiles and no register cap): keys per tile, and the least number of blocks
-// per SM that the register allocation must allow (__launch_bounds__). The
-// defaults are the choice of ops/attention_tune.py's sweep on the card.
-#ifndef ATTN_BC
-#define ATTN_BC 32
-#endif
-#ifndef ATTN_MIN_BLOCKS
-#define ATTN_MIN_BLOCKS 5
-#endif
 
 struct Params {
   const void* q;
@@ -189,8 +179,10 @@ __device__ __forceinline__ void load_rows_async(T* dst, const T* src, long long 
 
 template <int kDp>
 struct FlashShape {
-  static constexpr int kBc = kDp > 128 ? 32 : ATTN_BC;  // keys per tile
-  static constexpr int kMinBlocks = kDp > 128 ? 1 : ATTN_MIN_BLOCKS;
+  static constexpr int kBc = 32;  // keys per tile
+  // least blocks per SM the register allocation must allow (__launch_bounds__);
+  // Dh 256 needs its 128 f32 accumulators a thread, so no cap there
+  static constexpr int kMinBlocks = kDp > 128 ? 1 : 5;
   static constexpr int kLd = kDp + 8;              // shared-memory row stride, elements
   static constexpr int kQBytes = kBr * kLd * 2;
   static constexpr int kTileBytes = kBc * kLd * 2;

@@ -44,6 +44,16 @@ _ARGTYPES = (
     [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 6 + [_c.c_longlong] * 13
     + [_c.c_int, _c.c_float, _c.c_void_p]
 )
+_fwd = None  # the C entry point, typed once
+
+
+def _attention_fwd():
+    global _fwd
+    if _fwd is None:
+        fn = build.load("attention").attention_fwd
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _fwd = fn
+    return _fwd
 
 
 def sdpa_reference(q, k, v, km, *, causal: bool, sm_scale: float) -> torch.Tensor:
@@ -141,10 +151,7 @@ def _run(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
             raise ValueError(f"key_mask must be [B, Tk] = {(b, tk)} on q's device")
         km32 = km.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = build.load("attention")
-    fn = lib.attention_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
+    code = _attention_fwd()(
         1 if q.dtype == torch.bfloat16 else 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if km32 is None else km32.data_ptr(), out.data_ptr(),
@@ -156,6 +163,12 @@ def _run(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
     )
     build.check(code, "attention kernel")
     return out
+
+
+def _needs_grad(*xs: torch.Tensor) -> bool:
+    """Whether autograd must record the call; inference skips the autograd
+    Function and its host time."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
@@ -209,7 +222,9 @@ def fused_attention(
         return _plain(q, k, v, key_mask, causal, sm_scale, layout, h, kvh)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
-    return _FusedAttention.apply(q, k, v, key_mask, causal, float(sm_scale), layout, h, kvh)
+    if _needs_grad(q, k, v):
+        return _FusedAttention.apply(q, k, v, key_mask, causal, float(sm_scale), layout, h, kvh)
+    return _launch(q, k, v, key_mask, causal, float(sm_scale), layout, h, kvh)
 
 
 def _split_qkv(qkv: torch.Tensor, h: int, kvh: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -223,19 +238,23 @@ def _plain_qkv(qkv, km, causal, sm_scale, h, kvh):
     return _plain(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
 
 
+def _launch_qkv(qkv, km, causal, sm_scale, h, kvh) -> torch.Tensor:
+    global qkv_launches
+    with torch.profiler.record_function("fused_attention_qkv"):
+        out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
+    qkv_launches += 1
+    return out
+
+
 class _FusedAttentionQKV(torch.autograd.Function):
     """The kernel on three views of the stacked projection (no copy); the
     backward recomputes through the plain version."""
 
     @staticmethod
     def forward(ctx, qkv, km, causal, sm_scale, h, kvh):
-        global qkv_launches
         ctx.save_for_backward(qkv, km)
         ctx.args = (causal, sm_scale, h, kvh)
-        with torch.profiler.record_function("fused_attention_qkv"):
-            out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
-        qkv_launches += 1
-        return out
+        return _launch_qkv(qkv, km, causal, sm_scale, h, kvh)
 
     @staticmethod
     def backward(ctx, g):
@@ -270,4 +289,6 @@ def fused_attention_qkv(
         return _plain_qkv(qkv, key_mask, causal, sm_scale, h, kvh)
     if qkv.device.type != "cuda":
         raise ValueError(f"fused_attention_qkv runs on cuda (kernel) or cpu (plain), not {qkv.device}")
-    return _FusedAttentionQKV.apply(qkv, key_mask, causal, float(sm_scale), h, kvh)
+    if _needs_grad(qkv):
+        return _FusedAttentionQKV.apply(qkv, key_mask, causal, float(sm_scale), h, kvh)
+    return _launch_qkv(qkv, key_mask, causal, float(sm_scale), h, kvh)

@@ -69,6 +69,16 @@ def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, 
     assert float((got.float() - want).abs().max()) <= tol
 
 
+def _assert_bf16_attention_close(got, want):
+    """chip_smoke.py's bf16 attention limits: 2e-2 absolute, and 1e-2 for
+    max|d|/max|plain| and mean|d|/mean|plain| (outputs shrink as key rows
+    grow, so the absolute limit alone loosens with Tk)."""
+    d = (got.float() - want).abs()
+    assert float(d.max()) <= 2e-2
+    assert float(d.max()) / float(want.abs().max()) <= 1e-2
+    assert float(d.mean()) / float(want.abs().mean()) <= 1e-2
+
+
 @pytest.mark.parametrize("layout,h,kvh,t,dh", [
     ("packed", 4, 4, 77, 64),
     ("bhtd", 4, 2, 100, 72),
@@ -90,7 +100,7 @@ def test_attention_bf16_fully_masked_rows_are_exact_zeros(dev, layout, h, kvh, t
     o4 = got if layout == "bhtd" else got.reshape(b, t, h, dh).transpose(1, 2)
     assert bool((o4[2] == 0).all())
     assert bool((o4[0, :, 0] == 0).all())
-    assert float((got.float() - want).abs().max()) <= 2e-2
+    _assert_bf16_attention_close(got, want)
 
 
 def test_attention_bf16_takes_a_long_key_row(dev):
@@ -100,7 +110,7 @@ def test_attention_bf16_takes_a_long_key_row(dev):
     got = attention_cuda.fused_attention(q, k, v)
     torch.cuda.synchronize()
     want = attention_cuda._plain(q.float(), k.float(), v.float(), None, False, 0.125, "bhtd", 2, 2)
-    assert float((got.float() - want).abs().max()) <= 2e-2
+    _assert_bf16_attention_close(got, want)
 
 
 def test_attention_gradient_recomputes_through_plain_version(dev):
