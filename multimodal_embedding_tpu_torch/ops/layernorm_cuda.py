@@ -11,7 +11,8 @@ its own kernel. It stays a tested, differentiable function.
 :func:`fused_layer_norm` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version only for
 tensors that lie on the CPU. The gradient recomputes through the plain
-version (the JAX kernel's ``custom_vjp`` design).
+version (the JAX kernel's ``custom_vjp`` design); a call that needs no
+gradient skips the autograd Function.
 """
 
 from __future__ import annotations
@@ -26,7 +27,17 @@ from . import build
 launches = 0
 
 _c = ctypes
-_ARGTYPES = [_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int, _c.c_int, _c.c_float, _c.c_void_p]
+_ARGTYPES = [_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]
+_fwd = None  # the C entry point, typed once
+
+
+def _layernorm_fwd():
+    global _fwd
+    if _fwd is None:
+        fn = build.load("layernorm").layernorm_fwd
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        _fwd = fn
+    return _fwd
 
 
 def reference(x, scale, bias, *, eps: float = 1e-5) -> torch.Tensor:
@@ -54,12 +65,11 @@ def _launch(x, scale, bias, eps):
         return y.reshape(x.shape)
     if x2.data_ptr() % 16 or y.data_ptr() % 16:
         raise ValueError("layernorm kernel needs 16-byte aligned rows")
-    fn = build.load("layernorm").layernorm_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    code = fn(
-        1 if x.dtype == torch.bfloat16 else 0, x2.data_ptr(), scale.contiguous().data_ptr(),
-        bias.contiguous().data_ptr(), y.data_ptr(), x2.shape[0], d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
+    scale, bias = scale.contiguous(), bias.contiguous()
+    sb_vec = int(scale.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0)  # else element loads
+    code = _layernorm_fwd()(
+        1 if x.dtype == torch.bfloat16 else 0, x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x2.shape[0], d, float(eps), sb_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "layernorm kernel")
     launches += 1
@@ -92,4 +102,6 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *
         return reference(x, scale, bias, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm runs on cuda (kernel) or cpu (plain), not {x.device}")
-    return _FusedLayerNorm.apply(x, scale, bias, float(eps))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, scale, bias)):
+        return _FusedLayerNorm.apply(x, scale, bias, float(eps))
+    return _launch(x, scale, bias, float(eps))  # inference: no autograd Function

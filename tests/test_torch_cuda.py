@@ -205,6 +205,14 @@ def _rel(got, want):
     (33, 1152, 4304 // 8, False, "gelu_pytorch_tanh", "ln"),  # SigLIP width, no delta
     (17, 64, 48, True, "gelu", "ln"),
     (24, 40, 37, True, None, "rms_gemma"),  # D not a multiple of 16, odd N
+    # M across the 128-row output tile, N across the column tile, D past a
+    # depth slice of 32 and past the row pass's warp-per-row width
+    (1, 1024, 136, True, None, "ln"),
+    (127, 768, 8, True, "quick_gelu", "ln"),
+    (129, 2048, 4304, False, "gelu_pytorch_tanh", "ln"),
+    (257, 40, 4304, True, "gelu", "ln"),
+    (257, 8192, 136, True, None, "rms_gemma"),
+    (129, 8192, 8, False, "quick_gelu", "ln"),
 ])
 def test_prologue_kernel_matches_plain(dev, dtype, tol, m, d, n, has_delta, act, norm):
     rng = np.random.default_rng(4)
@@ -226,6 +234,50 @@ def test_prologue_kernel_matches_plain(dev, dtype, tol, m, d, n, has_delta, act,
     assert torch.equal(x_new, want_x)
     assert y.dtype == dtype and y.shape == (m, n)
     assert _rel(y, want_y) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("m,d,has_delta,norm", [
+    (1, 1024, True, "ln"),
+    (129, 768, False, "ln"),
+    (37, 1152, True, "rms_gemma"),
+    (17, 2048, True, "ln"),
+    (9, 8192, False, "ln"),  # a block per row
+    (5, 40, True, "rms_gemma"),
+])
+def test_prologue_row_pass_matches_plain(dev, dtype, tol, m, d, has_delta, norm):
+    """The row pass alone: x_new bit-equal and h within max|d|/max|plain|
+    ``tol`` of the plain row pass in the same dtype (bf16: one rounding of h
+    may land on the neighbouring value, 2^-8 relative)."""
+    rng = np.random.default_rng(12)
+
+    def rand(shape, s=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * s).to(dev, dtype)
+
+    x, delta = rand((m, d)), rand((m, d)) if has_delta else None
+    gamma, beta = rand((d,), 0.1), rand((d,), 0.1) if norm == "ln" else None
+    before = fused_ln_matmul_cuda.row_launches
+    x_new, h = fused_ln_matmul_cuda.fused_res_norm_rows(x, delta, gamma, beta, norm=norm, eps=1e-6)
+    torch.cuda.synchronize()
+    assert fused_ln_matmul_cuda.row_launches == before + 1
+    want_x, want_h = fused_ln_matmul_cuda.reference_rows(x, delta, gamma, beta, norm=norm, eps=1e-6)
+    assert torch.equal(x_new, want_x)
+    assert h.dtype == dtype
+    assert _rel(h, want_h.float()) <= tol
+
+
+def test_prologue_forward_is_the_same_with_and_without_grad(dev):
+    """With an input that needs a gradient the call goes through the autograd
+    Function; under inference it launches directly: the same tensors."""
+    rng = np.random.default_rng(13)
+    ins = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32) * 0.3).to(dev, torch.bfloat16)
+           for s in ((3, 50, 768), (3, 50, 768), (768,), (768,), (768, 520), (520,))]
+    with torch.no_grad():
+        plain = fused_ln_matmul_cuda.fused_res_norm_matmul(*ins, act="quick_gelu")
+    graded = fused_ln_matmul_cuda.fused_res_norm_matmul(ins[0].clone().requires_grad_(), *ins[1:], act="quick_gelu")
+    assert graded[1].requires_grad
+    for a, b in zip(plain, graded):
+        assert torch.equal(a, b.detach())
 
 
 def test_prologue_gradient_recomputes_through_plain_version(dev):
@@ -294,7 +346,13 @@ def test_attention_qkv_gradient_recomputes_through_plain_version(dev):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("m,d", [(130, 1024), (37, 1152), (9, 40), (5, 2048), (3, 6144)])
+@pytest.mark.parametrize("m,d", [
+    (130, 1024), (37, 1152), (9, 40), (5, 2048), (3, 6144),
+    # the towers' widths (3, 4, 5 and 8 vectors a lane in bf16), one row, and
+    # row counts that are not a multiple of the 8 rows a block
+    (1, 768), (1001, 768), (1, 1024), (4099, 1024), (1, 1152), (8193, 1152), (1, 2048), (61, 2048),
+    (1, 6144), (11, 6144),
+])
 def test_layer_norm_kernel_matches_plain(dev, dtype, tol, m, d):
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.standard_normal((m, d), dtype=np.float32) * 2 + 0.5).to(dev, dtype)
@@ -306,6 +364,23 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, tol, m, d):
     want = layernorm_cuda.reference(x.float(), s.float(), b.float(), eps=1e-6)
     assert got.dtype == dtype
     assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("d", [1152, 6144])
+def test_layer_norm_kernel_takes_a_misaligned_scale_view(dev, dtype, tol, d):
+    """scale and bias as views one element into a buffer (not 16-byte aligned)."""
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.standard_normal((19, d), dtype=np.float32)).to(dev, dtype)
+    buf = torch.from_numpy(rng.standard_normal(2 * d + 2, dtype=np.float32)).to(dev, dtype)
+    s, b = buf[1 : d + 1], buf[d + 2 :]
+    assert s.data_ptr() % 16 and b.is_contiguous()
+    got = layernorm_cuda.fused_layer_norm(x, s, b, eps=1e-5)
+    want = layernorm_cuda.reference(x.float(), s.float(), b.float(), eps=1e-5)
+    assert _rel(got, want) <= tol
+    with torch.no_grad():
+        aligned = layernorm_cuda.fused_layer_norm(x, s.clone(), b.clone(), eps=1e-5)
+    assert torch.equal(got, aligned)
 
 
 def test_layer_norm_gradient_recomputes_through_plain_version(dev):
