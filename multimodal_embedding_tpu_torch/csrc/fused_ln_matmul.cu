@@ -82,8 +82,11 @@ constexpr int kBM = 128;    // output rows per block
 #ifndef PROLOGUE_STAGES
 #define PROLOGUE_STAGES 4
 #endif
+#ifndef PROLOGUE_BK
+#define PROLOGUE_BK 32
+#endif
 constexpr int kBN = PROLOGUE_BN;        // output columns per block
-constexpr int kBK = 32;                 // depth of one ring stage
+constexpr int kBK = PROLOGUE_BK;        // depth of one ring stage
 constexpr int kStages = PROLOGUE_STAGES;  // ring stages (kStages - 1 in flight)
 constexpr int kWarpsM = 2;  // warps along the rows; kWarps / kWarpsM along the columns
 constexpr int kWarpsN = kWarps / kWarpsM;
@@ -111,7 +114,7 @@ struct ProductParams {
   const void* w;     // [D, N] contiguous
   const void* bias;  // [N], or nullptr
   void* y;           // [M, N]
-  int M, D, N, act;
+  int M, D, N;
   int w_vec;  // 1: W rows are 16-byte aligned, loaded by cp.async; 0: element loads
 };
 
@@ -166,17 +169,12 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return t;
 }
 
-__device__ __forceinline__ float activate(int act, float v) {
-  switch (act) {
-    case kGelu:
-      return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-    case kQuickGelu:
-      return v / (1.0f + expf(-1.702f * v));
-    case kGeluTanh:
-      return 0.5f * v * (1.0f + tanhf(0.79788456080286536f * (v + 0.044715f * v * v * v)));
-    default:
-      return v;
-  }
+template <int kAct>
+__device__ __forceinline__ float activate(float v) {
+  if constexpr (kAct == kGelu) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+  if constexpr (kAct == kQuickGelu) return v / (1.0f + expf(-1.702f * v));
+  if constexpr (kAct == kGeluTanh) return 0.5f * v * (1.0f + tanhf(0.79788456080286536f * (v + 0.044715f * v * v * v)));
+  return v;
 }
 
 // --- 1. the row pass ------------------------------------------------------------
@@ -189,12 +187,8 @@ __device__ __forceinline__ float norm_value(bool ln, float v, float mu, float rs
   return ln ? (v - mu) * rstd * g + b : v * rstd * (1.0f + g);
 }
 
-#ifndef ROW_MIN_BLOCKS
-#define ROW_MIN_BLOCKS 2
-#endif
-
 template <typename T, int kVecs>
-__global__ void __launch_bounds__(kThreads, ROW_MIN_BLOCKS) row_kernel(RowParams p) {
+__global__ void __launch_bounds__(kThreads) row_kernel(RowParams p) {
   constexpr int V = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -439,7 +433,9 @@ __device__ __forceinline__ void load_stage(const ProductParams& p, int stage, in
   }
 }
 
-template <typename T>
+// kAct: the epilogue's activation, a template parameter so that each
+// instance carries the code of one.
+template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductParams p) {
   using S = Smem<T>;
   constexpr bool kBf16 = sizeof(T) == 2;
@@ -567,7 +563,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float t = acc[mt][nt][2 * half + e] + bias_s[cl + e];
-          if (p.act != kNone) t = activate(p.act, round_t<T>(t));
+          if constexpr (kAct != kNone) t = activate<kAct>(round_t<T>(t));
           v[e] = t;
         }
         bool paired = false;
@@ -583,10 +579,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
     }
 }
 
-template <typename T>
+template <typename T, int kAct>
 int product(const ProductParams& p, cudaStream_t stream) {
   static bool attr_set = false;
-  auto kernel = product_kernel<T>;
+  auto kernel = product_kernel<T, kAct>;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T>::total);
     if (e != cudaSuccess) return (int)e;
@@ -596,6 +592,17 @@ int product(const ProductParams& p, cudaStream_t stream) {
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, kThreads, Smem<T>::total, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int product_act(const ProductParams& p, int act, cudaStream_t s) {
+  switch (act) {
+    case kNone: return product<T, kNone>(p, s);
+    case kGelu: return product<T, kGelu>(p, s);
+    case kQuickGelu: return product<T, kQuickGelu>(p, s);
+    case kGeluTanh: return product<T, kGeluTanh>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -627,8 +634,8 @@ extern "C" int fused_ln_matmul_fwd(int dtype, const void* x, const void* delta, 
   if (N <= 0) return (int)cudaErrorInvalidValue;
   const int code = fused_ln_rows_fwd(dtype, x, delta, gamma, beta, x_new, h, M, D, norm, eps, gb_vec, stream);
   if (code != 0) return code;
-  ProductParams p{h, w, bias, y, M, D, N, act, w_vec};
+  ProductParams p{h, w, bias, y, M, D, N, w_vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return product<__nv_bfloat16>(p, s);
-  return product<float>(p, s);
+  if (dtype == 1) return product_act<__nv_bfloat16>(p, act, s);
+  return product_act<float>(p, act, s);
 }

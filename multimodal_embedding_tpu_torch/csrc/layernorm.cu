@@ -68,12 +68,8 @@ __device__ __forceinline__ float elem(const uint4& v, int e) {
   return to_f(reinterpret_cast<const T*>(&v)[e]);
 }
 
-#ifndef LN_MIN_BLOCKS
-#define LN_MIN_BLOCKS 2
-#endif
-
 template <typename T, int kVecs>
-__global__ void __launch_bounds__(kThreads, LN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads)
     ln_kernel(const T* __restrict__ x, const T* __restrict__ scale, const T* __restrict__ bias, T* __restrict__ y,
               int M, int D, float eps, int sb_vec) {
   constexpr int V = 16 / sizeof(T);

@@ -3,9 +3,8 @@
     python -m multimodal_embedding_tpu_torch.ops.prologue_tune
 
 Builds ``csrc/fused_ln_matmul.cu`` and ``csrc/layernorm.cu`` once per
-variant (``-D`` defines: the product pass's column tile ``PROLOGUE_BN`` and
-ring depth ``PROLOGUE_STAGES``, the row kernels' least resident blocks
-``ROW_MIN_BLOCKS`` / ``LN_MIN_BLOCKS``), all nvcc runs at once, prints each
+variant (``-D`` defines: the product pass's column tile ``PROLOGUE_BN``, ring
+stage depth ``PROLOGUE_BK`` and ring length ``PROLOGUE_STAGES``), all nvcc runs at once, prints each
 build's registers and spills, then times every variant at the main paths'
 shapes in two rounds of opposite order. A time is CUDA events around 30
 back-to-back launches of the C entry point, over 30 (device throughput; the
@@ -27,16 +26,16 @@ from . import build, fused_ln_matmul_cuda as fl, layernorm_cuda as lnc
 
 OUT = build.BUILD_DIR.parent / "tune"
 PROLOGUE_VARIANTS = [
-    {"PROLOGUE_BN": 256, "PROLOGUE_STAGES": 4, "ROW_MIN_BLOCKS": 2},
-    {"PROLOGUE_BN": 256, "PROLOGUE_STAGES": 3, "ROW_MIN_BLOCKS": 3},
-    {"PROLOGUE_BN": 128, "PROLOGUE_STAGES": 4, "ROW_MIN_BLOCKS": 4},
-    {"PROLOGUE_BN": 128, "PROLOGUE_STAGES": 3, "ROW_MIN_BLOCKS": 1},
+    {"PROLOGUE_BN": 128, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 4},
+    {"PROLOGUE_BN": 128, "PROLOGUE_BK": 64, "PROLOGUE_STAGES": 3},
+    {"PROLOGUE_BN": 256, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 4},
+    {"PROLOGUE_BN": 256, "PROLOGUE_BK": 64, "PROLOGUE_STAGES": 3},
 ]
-LN_VARIANTS = [{"LN_MIN_BLOCKS": b} for b in (1, 2, 3, 4)]
+LN_VARIANTS = [{}]
 
 
 def _tag(defs: dict) -> str:
-    return "-".join(f"{k}{v}" for k, v in defs.items())
+    return "-".join(f"{k}{v}" for k, v in defs.items()) or "default"
 
 
 def _compile(name: str, variants: list[dict]) -> dict[str, ctypes.CDLL]:
