@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --attention-cases   # the build and phase 2's attention cases only
+    python3 chip_smoke.py --cases prologue,layernorm   # the build and these phase-2 cases only
+    python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. build the CUDA kernels of ``multimodal_embedding_tpu_torch/csrc`` (one
@@ -12,8 +13,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
      layer's, plus attention at ViT-H's Dh 80 and at a 4096-key row), with
      the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
-     one) and the least time the card could take (``bound_ms``); for
-     attention also the kernel's device time alone (``device_ms``);
+     one) and the least time the card could take (``bound_ms``), and each
+     kernel's device time alone (``device_ms``) beside the library call's
+     (``library_device_ms``; for the prologue, ``addmm`` for orientation),
+     with the prologue's row pass also timed alone (``row_device_ms``);
   3. the main paths at full width, each through the port's CLI in-process
      on the synthetic dataset at the model's published architecture with
      random weights: OpenAI-CLIP-L (dense), ColPali-v1.3 (multi-vector,
@@ -253,13 +256,14 @@ def _preprocess_case(h, w, b, rng, model="OpenAI-CLIP-L"):
         lim = float(level[ch]) * (1 + 1e-5) + 1e-6
         require(per_ch[ch] <= lim, f"preprocess {h}x{w} channel {ch}: max diff {per_ch[ch]} > one level {lim}")
     ms = cuda_time_ms(lambda: kern(x))
+    dev_ms = device_ms(lambda: kern(x))
     plain_ms = cuda_time_ms(lambda: plain(x))
     # the multiply-adds these weights need: the nonzero bands of both passes
     flops = 2.0 * 3 * b * preprocess_weights(cfg, h, w, "cpu").taps
     nbytes = b * 3 * h * w + b * c * c * 3 * 4
     bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
     case = {"case": f"{model} {cfg.resize_mode} {h}x{w}->{c}", "shape": [b, 3, h, w], "bit_equal": bit_equal,
-            "max_abs_err": max(per_ch), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "max_abs_err": max(per_ch), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bms, "bound_by": by}
     print(f"[preprocess] {json.dumps(case)}")
     return case
@@ -295,6 +299,7 @@ def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng):
     tol = MAXSIM_REL_TOL_BF16 if bf16 else MAXSIM_REL_TOL_F32
     require(math.isfinite(rel) and rel <= tol, f"maxsim {name}: max|d|/max|plain| {rel} > {tol}")
     ms = cuda_time_ms(lambda: maxsim_cuda.maxsim_cuda(q, d, qm, dm))
+    dev_ms = device_ms(lambda: maxsim_cuda.maxsim_cuda(q, d, qm, dm))
     plain_ms = cuda_time_ms(lambda: maxsim_cuda.maxsim_scores_ref(q, d, qm, dm))
     # the dot products these masks need: weighted query tokens x valid doc tokens
     flops = 2.0 * dim * nq_valid * nd_valid
@@ -303,8 +308,8 @@ def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng):
         nbytes += 4 * nq * tq + nd * td
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     case = {"case": name, "shape": [nq, tq, nd, td, dim], "dtype": str(dtype).replace("torch.", ""),
-            "max_abs_err": err, "max_rel_err": rel, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bms, "bound_by": by}
+            "max_abs_err": err, "max_rel_err": rel, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
     print(f"[maxsim] {json.dumps(case)}")
     return case
 
@@ -338,25 +343,48 @@ def _prologue_case(name, *, m, d, n, dtype, has_delta, act, norm="ln", eps=1e-5,
     torch.cuda.synchronize()
     want_x, _ = fl.reference(*args, **kw)
     require(torch.equal(x_new, want_x), f"prologue {name}: x_new is not bit-equal to the plain version")
-    _, plain_y = fl.reference(*(None if t is None else t.float() for t in args), **kw)
+    f32 = [None if t is None else t.float() for t in args]
+    _, plain_y = fl.reference(*f32, **kw)
     err, max_rel, mean_rel = _rel_errs(y, plain_y)
     del plain_y
     tol = PROLOGUE_REL_TOL_BF16 if dtype == torch.bfloat16 else PROLOGUE_REL_TOL_F32
     require(math.isfinite(err) and max_rel <= tol and mean_rel <= tol,
             f"prologue {name}: relative err max {max_rel}, mean {mean_rel} > {tol}")
+    # the row pass alone (an archive of an older port has no such entry: then None)
+    rows = getattr(fl, "fused_res_norm_rows", None)
+    rows_kw = dict(norm=norm, eps=eps)
+    row_extra = {}
+    if rows is not None:
+        rx, rh = rows(*args[:4], **rows_kw)
+        torch.cuda.synchronize()
+        require(torch.equal(rx, want_x), f"prologue {name}: the row pass's x_new is not bit-equal")
+        _, h_err, h_mean = _rel_errs(rh, fl.reference_rows(*f32[:4], **rows_kw)[1])
+        require(h_err <= tol and h_mean <= tol, f"prologue {name}: the row pass's h relative err {h_err} > {tol}")
+        row_extra = {"h_max_rel_err": h_err, "row_device_ms": device_ms(lambda: rows(*args[:4], **rows_kw))}
+        del rx, rh
     ms = cuda_time_ms(lambda: fl.fused_res_norm_matmul(*args, **kw))
+    dev_ms = device_ms(lambda: fl.fused_res_norm_matmul(*args, **kw))
     plain_ms = cuda_time_ms(lambda: fl.reference(*args, **kw))
     h = torch.empty(m, d, dtype=dtype, device=dev)  # for orientation: the bare product with its bias
-    addmm_ms = cuda_time_ms(lambda: torch.addmm(b, h, w) if b is not None else torch.mm(h, w))
+
+    def addmm():
+        return torch.addmm(b, h, w) if b is not None else torch.mm(h, w)
+
+    addmm_ms, addmm_dev_ms = cuda_time_ms(addmm), device_ms(addmm)
     del h
     es = x.element_size()
     flops = 2.0 * m * d * n
     nbytes = es * (m * d * (2 + has_delta) + d * n + m * n + 2 * d + n)
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    if row_extra:
+        prod_ms = dev_ms - row_extra["row_device_ms"]
+        row_extra.update(product_device_ms=prod_ms, product_tflops=flops / (prod_ms * 1e9))
     case = {"case": name, "shape": [m, d, n], "dtype": str(dtype).replace("torch.", ""), "delta": has_delta,
             "act": act, "norm": norm, "eps": eps, "x_new_bit_equal": True, "max_abs_err": err,
-            "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "addmm_ms": addmm_ms, "bound_ms": bms, "bound_by": by}
+            "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "device_ms": dev_ms,
+            "tflops": flops / (dev_ms * 1e9), **row_extra, "plain_ms": plain_ms, "library_ms": None,
+            # no one PyTorch call computes the prologue: addmm alone, for orientation
+            "addmm_ms": addmm_ms, "library_device_ms": addmm_dev_ms, "bound_ms": bms, "bound_by": by}
     print(f"[prologue] {json.dumps(case)}")
     return case
 
@@ -436,13 +464,16 @@ def _layer_norm_case(name, *, m, d, dtype, eps, rng):
     require(math.isfinite(err) and max_rel <= tol and mean_rel <= tol,
             f"layernorm {name}: relative err max {max_rel}, mean {mean_rel} > {tol}")
     ms = cuda_time_ms(lambda: lnc.fused_layer_norm(x, scale, bias, eps=eps))
+    dev_ms = device_ms(lambda: lnc.fused_layer_norm(x, scale, bias, eps=eps))
     plain_ms = cuda_time_ms(lambda: lnc.reference(x, scale, bias, eps=eps))
     library_ms = cuda_time_ms(lambda: F.layer_norm(x, (d,), scale, bias, eps))
+    library_dev_ms = device_ms(lambda: F.layer_norm(x, (d,), scale, bias, eps))
     nbytes = x.element_size() * (2 * m * d + 2 * d)
     bms, by = bound_ms(8.0 * m * d, nbytes, PEAK_F32_FLOPS)
     case = {"case": name, "shape": [m, d], "dtype": str(dtype).replace("torch.", ""), "eps": eps,
-            "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+            "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": library_dev_ms, "bound_ms": bms,
+            "bound_by": by}
     print(f"[layernorm] {json.dumps(case)}")
     return case
 
@@ -478,20 +509,71 @@ def attention_cases() -> list[tuple[str, dict]]:
     ]
 
 
-def run_attention_cases() -> int:
-    """``--attention-cases``: the build, then phase 2's attention cases alone,
+# the --layer-impl fused encoder layer: ViT-L b64 (M 64*577), CLIP text b128
+# (M 128*77), ColPali's SigLIP-448 b8 (M 8*1024, LayerNorm eps 1e-6)
+VIT_ROWS, TEXT_ROWS, SIGLIP_ROWS = 64 * 577, 128 * 77, 8 * 1024
+
+
+def prologue_cases() -> list[tuple[str, dict]]:
+    import torch
+
+    bf16 = torch.bfloat16
+    vit, txt, sig = VIT_ROWS, TEXT_ROWS, SIGLIP_ROWS
+    return [
+        ("vit-l b64 qkv", dict(m=vit, d=1024, n=3072, dtype=bf16, has_delta=True, act=None)),
+        ("vit-l b64 mlp", dict(m=vit, d=1024, n=4096, dtype=bf16, has_delta=True, act="quick_gelu")),
+        ("clip text b128 qkv", dict(m=txt, d=768, n=2304, dtype=bf16, has_delta=True, act=None)),
+        ("clip text b128 mlp", dict(m=txt, d=768, n=3072, dtype=bf16, has_delta=True, act="quick_gelu")),
+        ("siglip-448 b8 mlp", dict(m=sig, d=1152, n=4304, dtype=bf16, has_delta=True, act="gelu_pytorch_tanh",
+                                   eps=1e-6)),
+        ("first sublayer, no delta (vit-l b64 qkv)", dict(m=vit, d=1024, n=3072, dtype=bf16, has_delta=False,
+                                                          act=None)),
+        ("rms_gemma", dict(m=4096, d=2048, n=1024, dtype=bf16, has_delta=True, act=None, norm="rms_gemma",
+                           eps=1e-6)),
+        ("f32 odd M and N", dict(m=77, d=64, n=37, dtype=torch.float32, has_delta=True, act="gelu")),
+    ]
+
+
+def layernorm_cases() -> list[tuple[str, dict]]:
+    import torch
+
+    bf16 = torch.bfloat16
+    return [
+        ("vit-l b64 rows", dict(m=VIT_ROWS, d=1024, dtype=bf16, eps=1e-5)),
+        ("siglip-448 b8 rows", dict(m=SIGLIP_ROWS, d=1152, dtype=bf16, eps=1e-6)),
+        ("f32", dict(m=1000, d=768, dtype=torch.float32, eps=1e-5)),
+    ]
+
+
+# --cases names: (case list, the function that runs one case, its print tag)
+CASE_SETS = {
+    "attention": (attention_cases, "_attention_case", "attention"),
+    "prologue": (prologue_cases, "_prologue_case", "prologue"),
+    "layernorm": (layernorm_cases, "_layer_norm_case", "layernorm"),
+}
+
+
+def run_cases(names: list[str]) -> int:
+    """``--cases a,b``: the build, then those sets of phase 2's cases alone,
     each printed; a case that fails is printed with its error and the run
     exits 1, with no result line. A copy of this script placed in another
-    checkout of the port times that checkout's kernel at the same shapes."""
+    checkout of the port times that checkout's kernels at the same shapes."""
+    unknown = [n for n in names if n not in CASE_SETS]
+    if unknown or not names:
+        print(f"chip_smoke: --cases takes a comma-separated list of {sorted(CASE_SETS)}, not {names}",
+              file=sys.stderr)
+        return 2
     phase_build()
     rng = np.random.default_rng(0)
     failed = 0
-    for name, kw in attention_cases():
-        try:
-            _attention_case(name, **kw, rng=rng)
-        except RuntimeError as e:
-            failed += 1
-            print(f"[attention] {json.dumps({'case': name, 'error': str(e)})}")
+    for set_name in names:
+        cases, fn_name, tag = CASE_SETS[set_name]
+        for name, kw in cases():
+            try:
+                globals()[fn_name](name, **kw, rng=rng)
+            except RuntimeError as e:
+                failed += 1
+                print(f"[{tag}] {json.dumps({'case': name, 'error': str(e)})}")
     return 1 if failed else 0
 
 
@@ -511,25 +593,7 @@ def phase_kernels() -> list[dict]:
         _maxsim_case("f32 masked padding edges", nq=37, tq=45, nd=29, td=75, dim=128, dtype=torch.float32,
                      masked=True, rng=rng),
     ]
-    # the --layer-impl fused encoder layer: ViT-L b64 (M 64*577), CLIP text
-    # b128 (M 128*77), ColPali's SigLIP-448 b8 (M 8*1024, LayerNorm eps 1e-6)
-    vit, txt, sig = 64 * 577, 128 * 77, 8 * 1024
-    prologue = [
-        _prologue_case("vit-l b64 qkv", m=vit, d=1024, n=3072, dtype=bf16, has_delta=True, act=None, rng=rng),
-        _prologue_case("vit-l b64 mlp", m=vit, d=1024, n=4096, dtype=bf16, has_delta=True, act="quick_gelu",
-                       rng=rng),
-        _prologue_case("clip text b128 qkv", m=txt, d=768, n=2304, dtype=bf16, has_delta=True, act=None, rng=rng),
-        _prologue_case("clip text b128 mlp", m=txt, d=768, n=3072, dtype=bf16, has_delta=True, act="quick_gelu",
-                       rng=rng),
-        _prologue_case("siglip-448 b8 mlp", m=sig, d=1152, n=4304, dtype=bf16, has_delta=True,
-                       act="gelu_pytorch_tanh", eps=1e-6, rng=rng),
-        _prologue_case("first sublayer, no delta (vit-l b64 qkv)", m=vit, d=1024, n=3072, dtype=bf16,
-                       has_delta=False, act=None, rng=rng),
-        _prologue_case("rms_gemma", m=4096, d=2048, n=1024, dtype=bf16, has_delta=True, act=None, norm="rms_gemma",
-                       eps=1e-6, rng=rng),
-        _prologue_case("f32 odd M and N", m=77, d=64, n=37, dtype=torch.float32, has_delta=True, act="gelu",
-                       rng=rng),
-    ]
+    prologue = [_prologue_case(name, **kw, rng=rng) for name, kw in prologue_cases()]
     attn_qkv = [
         _attention_qkv_case("vit-l b64 stacked", b=64, h=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
                             full_mask_rows=False, rng=rng),
@@ -540,11 +604,7 @@ def phase_kernels() -> list[dict]:
         _attention_qkv_case("f32 stacked causal+mask, fully masked rows", b=4, h=4, t=77, dh=64,
                             dtype=torch.float32, causal=True, masked=True, full_mask_rows=True, rng=rng),
     ]
-    ln = [
-        _layer_norm_case("vit-l b64 rows", m=vit, d=1024, dtype=bf16, eps=1e-5, rng=rng),
-        _layer_norm_case("siglip-448 b8 rows", m=sig, d=1152, dtype=bf16, eps=1e-6, rng=rng),
-        _layer_norm_case("f32", m=1000, d=768, dtype=torch.float32, eps=1e-5, rng=rng),
-    ]
+    ln = [_layer_norm_case(name, **kw, rng=rng) for name, kw in layernorm_cases()]
     root = "multimodal_embedding_tpu_torch/csrc"
     return [
         {"name": "fused_attention", "route": "cuda", "source": f"{root}/attention.cu",
@@ -802,9 +862,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    if sys.argv[1:] == ["--attention-cases"]:
+    args = sys.argv[1:]
+    if args == ["--attention-cases"]:
+        args = ["--cases", "attention"]
+    if args:
+        if len(args) != 2 or args[0] != "--cases":
+            print(f"chip_smoke: unknown arguments {args}", file=sys.stderr)
+            return 2
         print(card_line())
-        return run_attention_cases()
+        return run_cases(args[1].split(","))
     t0 = time.perf_counter()
     phase_build()
     kernels = phase_kernels()

@@ -169,11 +169,19 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return t;
 }
 
+// The activations in f32. quick_gelu is v * sigmoid(1.702 v), and the tanh
+// GELU 0.5 v (1 + tanh(u)) is the same function as v * sigmoid(2u): both are
+// taken as v / (1 + exp(-z)) with the fast exponential and division (about
+// 1e-6 relative; a huge exp(-z) gives 0, the limit). In the product's
+// epilogue every output takes one, so their cost shows wherever no other
+// block's products hide it.
+__device__ __forceinline__ float sigmoid_times(float v, float z) { return __fdividef(v, 1.0f + __expf(-z)); }
+
 template <int kAct>
 __device__ __forceinline__ float activate(float v) {
   if constexpr (kAct == kGelu) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  if constexpr (kAct == kQuickGelu) return v / (1.0f + expf(-1.702f * v));
-  if constexpr (kAct == kGeluTanh) return 0.5f * v * (1.0f + tanhf(0.79788456080286536f * (v + 0.044715f * v * v * v)));
+  if constexpr (kAct == kQuickGelu) return sigmoid_times(v, 1.702f * v);
+  if constexpr (kAct == kGeluTanh) return sigmoid_times(v, 1.5957691216057308f * (v + 0.044715f * v * v * v));
   return v;
 }
 
@@ -490,14 +498,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
   };
   if constexpr (kBf16) load_frags(0, 0, 0);
 
+  // Refill the stage depth slice kt - 1 used (every warp read it before the
+  // last barrier) with depth slice kt + kStages - 1.
+  auto refill = [&](int kt) {
+    const int nk = kt + kStages - 1;
+    if (nk < k_tiles) load_stage<T>(p, nk % kStages, nk, m0, n0);
+    cp_async_commit();  // one group per depth slice, empty past the end
+  };
+
   for (int kt = 0; kt < k_tiles; ++kt) {
-    {
-      // refill the stage depth slice kt - 1 used: every warp read it before
-      // the last barrier
-      const int nk = kt + kStages - 1;
-      if (nk < k_tiles) load_stage<T>(p, nk % kStages, nk, m0, n0);
-      cp_async_commit();  // one group per depth slice, empty past the end
-    }
     const int stage_off = (kt % kStages) * S::stage_bytes;
     if constexpr (kBf16) {
 #pragma unroll
@@ -516,8 +525,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
             mma_bf16(acc[mt][2 * np], a[ki & 1][mt], b[ki & 1][np][0], b[ki & 1][np][1]);
             mma_bf16(acc[mt][2 * np + 1], a[ki & 1][mt], b[ki & 1][np][2], b[ki & 1][np][3]);
           }
+        if (ki == 0) refill(kt);  // the copies are issued behind the first slice's products
       }
     } else {
+      refill(kt);
       const T* as = reinterpret_cast<const T*>(smem + stage_off);
       const T* bs = reinterpret_cast<const T*>(smem + stage_off + S::a_bytes);
 #pragma unroll 4

@@ -27,9 +27,9 @@ from . import build, fused_ln_matmul_cuda as fl, layernorm_cuda as lnc
 OUT = build.BUILD_DIR.parent / "tune"
 PROLOGUE_VARIANTS = [
     {"PROLOGUE_BN": 128, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 4},
-    {"PROLOGUE_BN": 128, "PROLOGUE_BK": 64, "PROLOGUE_STAGES": 3},
+    {"PROLOGUE_BN": 128, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 3},
     {"PROLOGUE_BN": 256, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 4},
-    {"PROLOGUE_BN": 256, "PROLOGUE_BK": 64, "PROLOGUE_STAGES": 3},
+    {"PROLOGUE_BN": 256, "PROLOGUE_BK": 32, "PROLOGUE_STAGES": 3},
 ]
 LN_VARIANTS = [{}]
 

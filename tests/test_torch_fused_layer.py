@@ -5,7 +5,9 @@ kernels run in interpret mode, as ``tests/test_fused_layer.py`` runs them.
 Inputs are made with numpy from a seed and weights are drawn by the JAX
 package and carried in by ``params_from_jax``. Tolerances, all f32:
 - the prologue: ``x_new`` 1e-6 and ``y`` 2e-5 against the JAX kernel forced
-  to a multi-block grid (``tests/test_fused_layer.py``'s);
+  to a multi-block grid (``tests/test_fused_layer.py``'s); its plain row pass
+  against the JAX ``_reference``'s intermediates: ``x_new`` bit-equal, ``h``
+  1e-5 in f32 and one bf16 rounding (2^-8) in bf16;
 - stacked-QKV attention and LayerNorm: 1e-5;
 - the fused encoder stack: 5e-5 with attention "xla" on both sides and 1e-4
   with "pallas" on both sides (the JAX tests' own), 5e-5 against the port's
@@ -123,6 +125,32 @@ def test_prologue_rounds_where_the_jax_reference_rounds():
                                          norm="ln", eps=1e-5, act="quick_gelu")
     np.testing.assert_array_equal(got[0].float().numpy(), np.asarray(want[0].astype(jnp.float32)))
     np.testing.assert_allclose(got[1].float().numpy(), np.asarray(want[1].astype(jnp.float32)), atol=2e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("has_delta", [True, False])
+@pytest.mark.parametrize("norm", ["ln", "rms_gemma"])
+def test_prologue_row_pass_matches_jax_reference_intermediates(dtype, has_delta, norm):
+    """The plain row pass against the intermediates of the JAX ``_reference``:
+    its ``x_new`` and ``_norm_f32(x_new).astype(dtype)``. ``x_new`` is one
+    rounding of the same f32 sum, so bit-equal; ``h`` is f32 arithmetic in
+    another order (``jnp.var`` against ``mean((x - mu)^2)``), so 1e-5 in f32
+    and within one bf16 rounding (2^-8 relative, 2^-8 absolute near zero) in
+    bf16."""
+    from multimodal_embedding_tpu.ops.fused_ln_matmul import _norm_f32, _reference
+
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    x, delta, gamma, beta, w, b = _prologue_inputs((2, 9, 96), 16, has_delta, norm, seed=17)
+    jx, jdelta, jgamma, jbeta, jw, jb = (None if a is None else jnp.asarray(a, jdt) for a in (x, delta, gamma, beta, w, b))
+    want_x, _ = _reference(jx, jdelta, jgamma, jbeta, jw, jb, norm=norm, eps=1e-5, act=None)
+    beta_f = jbeta.astype(jnp.float32) if jbeta is not None else 0.0
+    want_h = _norm_f32(want_x.astype(jnp.float32), jgamma.astype(jnp.float32), beta_f, norm=norm, eps=1e-5).astype(jdt)
+    got_x, got_h = fused_ln_matmul_cuda.reference_rows(
+        *(None if a is None else _t(a).to(tdt) for a in (x, delta, gamma, beta)), norm=norm, eps=1e-5)
+    assert got_x.dtype == got_h.dtype == tdt and got_h.shape == (2, 9, 96)
+    np.testing.assert_array_equal(got_x.float().numpy(), np.asarray(want_x.astype(jnp.float32)))
+    tol = 1e-5 if dtype == "float32" else 2.0**-8
+    np.testing.assert_allclose(got_h.float().numpy(), np.asarray(want_h.astype(jnp.float32)), atol=tol, rtol=tol)
 
 
 def test_prologue_rejects_what_it_does_not_take():
