@@ -498,15 +498,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
   };
   if constexpr (kBf16) load_frags(0, 0, 0);
 
-  // Refill the stage depth slice kt - 1 used (every warp read it before the
-  // last barrier) with depth slice kt + kStages - 1.
-  auto refill = [&](int kt) {
-    const int nk = kt + kStages - 1;
-    if (nk < k_tiles) load_stage<T>(p, nk % kStages, nk, m0, n0);
-    cp_async_commit();  // one group per depth slice, empty past the end
-  };
-
   for (int kt = 0; kt < k_tiles; ++kt) {
+    {
+      // refill the stage depth slice kt - 1 used: every warp read it before
+      // the last barrier
+      const int nk = kt + kStages - 1;
+      if (nk < k_tiles) load_stage<T>(p, nk % kStages, nk, m0, n0);
+      cp_async_commit();  // one group per depth slice, empty past the end
+    }
     const int stage_off = (kt % kStages) * S::stage_bytes;
     if constexpr (kBf16) {
 #pragma unroll
@@ -525,10 +524,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
             mma_bf16(acc[mt][2 * np], a[ki & 1][mt], b[ki & 1][np][0], b[ki & 1][np][1]);
             mma_bf16(acc[mt][2 * np + 1], a[ki & 1][mt], b[ki & 1][np][2], b[ki & 1][np][3]);
           }
-        if (ki == 0) refill(kt);  // the copies are issued behind the first slice's products
       }
     } else {
-      refill(kt);
       const T* as = reinterpret_cast<const T*>(smem + stage_off);
       const T* bs = reinterpret_cast<const T*>(smem + stage_off + S::a_bytes);
 #pragma unroll 4
