@@ -85,6 +85,9 @@ constexpr int kBM = 128;    // output rows per block
 #ifndef PROLOGUE_BK
 #define PROLOGUE_BK 32
 #endif
+#ifndef PROLOGUE_PROBE
+#define PROLOGUE_PROBE 0  // 1: no copies into the ring; 2: no mma.sync (timing probes, wrong results)
+#endif
 constexpr int kBN = PROLOGUE_BN;        // output columns per block
 constexpr int kBK = PROLOGUE_BK;        // depth of one ring stage
 constexpr int kStages = PROLOGUE_STAGES;  // ring stages (kStages - 1 in flight)
@@ -407,6 +410,7 @@ __device__ __forceinline__ void load_stage(const ProductParams& p, int stage, in
   constexpr int V = S::V;
   T* as = reinterpret_cast<T*>(smem + stage * S::stage_bytes);
   T* bs = reinterpret_cast<T*>(smem + stage * S::stage_bytes + S::a_bytes);
+  if (PROLOGUE_PROBE == 1) return;
   const T* h = static_cast<const T*>(p.h);
   const T* w = static_cast<const T*>(p.w);
   const int k0 = kt * kBK;
@@ -518,7 +522,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
           if (kt + 1 < k_tiles) load_frags(0, ((kt + 1) % kStages) * S::stage_bytes, 0);
         }
 #pragma unroll
-        for (int np = 0; np < kNT / 2; ++np)
+        for (int np = 0; np < kNT / 2 && PROLOGUE_PROBE != 2; ++np)
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             mma_bf16(acc[mt][2 * np], a[ki & 1][mt], b[ki & 1][np][0], b[ki & 1][np][1]);
