@@ -31,15 +31,18 @@
 //    (row_block_kernel), which reads its x_new back from L2, so any D that is
 //    a multiple of 8 is taken.
 // 2. Product pass (product_kernel): y = epilogue(h W + bias), a GEMM from
-//    device memory. A block owns a 128 x kBN output tile; 8 warps of 64 x
-//    kBN/4 each (every k16 slice runs 4 * kBN/32 mma.sync a warp against 4 +
-//    kBN/32 ldmatrix). A and B tiles go through a kStages-deep cp.async ring,
-//    zero-filled past M, N and D. bf16: ldmatrix + mma.sync m16n8k16 with f32
-//    accumulators; f32: plain FMA in the same fragment layout (no TF32).
-//    Blocks are numbered with the column tile fastest, so the blocks resident
-//    at one time share a few row tiles of h and all of W stays in L2. The
-//    bias sits in shared memory from the start; the epilogue adds it, rounds,
-//    runs the activation in f32 and stores column pairs.
+//    device memory. A block owns a 128 x 256 output tile; 8 warps of 64 x 64
+//    each (every k16 slice runs 32 mma.sync a warp against 8 ldmatrix), so
+//    one block fills an SM (255 registers a thread). A and B tiles go through
+//    a 4-stage cp.async ring of 32-deep slices, zero-filled past M, N and D.
+//    bf16: ldmatrix + mma.sync m16n8k16 with f32 accumulators; f32: plain FMA
+//    in the same fragment layout (no TF32). Blocks are numbered with the
+//    column tile fastest, so the blocks resident at one time share a few row
+//    tiles of h and all of W stays in L2. The bias sits in shared memory from
+//    the start; the epilogue adds it, rounds, runs the activation in f32
+//    (one instance of the kernel per activation) and stores column pairs.
+//    128-column tiles (two blocks an SM, 64 x 32 warp tiles) ran no faster
+//    and move a third more from L2.
 //
 // Why h goes to device memory. The earlier design normalized a 32-row tile
 // of h into shared memory and multiplied it there. A 128-row tile of h does
@@ -57,11 +60,14 @@
 // (N 3072) is 2*36928*1024*3072 = 232 GFLOP, 0.235 ms at the 989 TFLOP/s bf16
 // dense peak, against about 0.46 GB of x, delta, W, x_new and y (0.14 ms at
 // 3.35 TB/s): bound by operations; the MLP prologue (N 4096) is 310 GFLOP,
-// 0.313 ms. With 128-row tiles W is read 289 times at ViT-L b64 and h once
-// per column tile. Left to later work: wgmma fed by TMA on the product pass
-// (mma.sync reaches a fraction of the tensor cores' rate), a persistent
-// schedule that overlaps one tile's epilogue with the next tile's loads, and
-// stores of y staged through shared memory.
+// 0.313 ms. With 128 x 256 tiles W is read from L2 289 times and h 12 times
+// at ViT-L b64 QKV, 2.7 GB in all, and that delivery, not the mma.sync loop,
+// is what the product pass waits on: on an H100 SXM the same kernel with its
+// copies taken out runs the QKV product in about two thirds of its time,
+// with its products taken out in over four fifths. Left to later work: wgmma
+// fed by TMA with W multicast over a cluster (one L2 read for several
+// blocks), a persistent schedule that overlaps one tile's epilogue with the
+// next tile's loads, and stores of y staged through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,26 +82,13 @@ constexpr int kMaxVecs = 8;  // 16-byte vectors a lane holds on the row pass's w
 
 // Product pass tiling.
 constexpr int kBM = 128;    // output rows per block
-#ifndef PROLOGUE_BN
-#define PROLOGUE_BN 256
-#endif
-#ifndef PROLOGUE_STAGES
-#define PROLOGUE_STAGES 4
-#endif
-#ifndef PROLOGUE_BK
-#define PROLOGUE_BK 32
-#endif
-#ifndef PROLOGUE_PROBE
-#define PROLOGUE_PROBE 0  // 1: no copies into the ring; 2: no mma.sync (timing probes, wrong results)
-#endif
-constexpr int kBN = PROLOGUE_BN;        // output columns per block
-constexpr int kBK = PROLOGUE_BK;        // depth of one ring stage
-constexpr int kStages = PROLOGUE_STAGES;  // ring stages (kStages - 1 in flight)
+constexpr int kBN = 256;    // output columns per block
+constexpr int kBK = 32;     // depth of one ring stage
+constexpr int kStages = 4;  // ring stages (kStages - 1 in flight)
 constexpr int kWarpsM = 2;  // warps along the rows; kWarps / kWarpsM along the columns
 constexpr int kWarpsN = kWarps / kWarpsM;
 constexpr int kMT = kBM / kWarpsM / 16;  // m16 tiles a warp
 constexpr int kNT = kBN / kWarpsN / 8;   // n8 tiles a warp (even)
-constexpr int kMinBlocks = kBN <= 128 ? 2 : 1;  // resident blocks an SM (registers)
 
 enum Norm { kLayerNorm = 0, kRmsGemma = 1 };
 enum Act { kNone = 0, kGelu = 1, kQuickGelu = 2, kGeluTanh = 3 };
@@ -410,7 +403,6 @@ __device__ __forceinline__ void load_stage(const ProductParams& p, int stage, in
   constexpr int V = S::V;
   T* as = reinterpret_cast<T*>(smem + stage * S::stage_bytes);
   T* bs = reinterpret_cast<T*>(smem + stage * S::stage_bytes + S::a_bytes);
-  if (PROLOGUE_PROBE == 1) return;
   const T* h = static_cast<const T*>(p.h);
   const T* w = static_cast<const T*>(p.w);
   const int k0 = kt * kBK;
@@ -448,7 +440,7 @@ __device__ __forceinline__ void load_stage(const ProductParams& p, int stage, in
 // kAct: the epilogue's activation, a template parameter so that each
 // instance carries the code of one.
 template <typename T, int kAct>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductParams p) {
+__global__ void __launch_bounds__(kThreads, 1) product_kernel(ProductParams p) {
   using S = Smem<T>;
   constexpr bool kBf16 = sizeof(T) == 2;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -522,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) product_kernel(ProductPa
           if (kt + 1 < k_tiles) load_frags(0, ((kt + 1) % kStages) * S::stage_bytes, 0);
         }
 #pragma unroll
-        for (int np = 0; np < kNT / 2 && PROLOGUE_PROBE != 2; ++np)
+        for (int np = 0; np < kNT / 2; ++np)
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             mma_bf16(acc[mt][2 * np], a[ki & 1][mt], b[ki & 1][np][0], b[ki & 1][np][1]);
