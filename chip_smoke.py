@@ -115,12 +115,13 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_ms(fn, iters: int = 10, windows: int = 3) -> float:
+def device_ms(fn, iters: int = 10, windows: int = 5) -> float | None:
     """Mean device time of the kernels ``fn`` launches per call, from a
     torch.profiler window of ``iters`` calls: what ``ms`` reads less the host's
     time before the launch, which dominates calls under about 0.2 ms. CUPTI
     now and then hands back a window with no kernel record in it; such a
-    window is taken again, up to ``windows`` in all."""
+    window is taken again, up to ``windows`` in all, and if none has one the
+    time is None ("not measured") and a note is printed."""
     import torch
 
     fn()
@@ -134,7 +135,8 @@ def device_ms(fn, iters: int = 10, windows: int = 3) -> float:
         total_us = sum(e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
         if total_us > 0:
             return total_us / iters / 1e3
-    raise RuntimeError(f"profiler saw no kernel launch in {windows} windows; events: {[e.key for e in events]}")
+    print(f"[device_ms] not measured: the profiler saw no kernel record in {windows} windows")
+    return None
 
 
 # --- phase 1 -------------------------------------------------------------------
@@ -376,13 +378,13 @@ def _prologue_case(name, *, m, d, n, dtype, has_delta, act, norm="ln", eps=1e-5,
     flops = 2.0 * m * d * n
     nbytes = es * (m * d * (2 + has_delta) + d * n + m * n + 2 * d + n)
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
-    if row_extra:
+    if row_extra and dev_ms is not None and row_extra["row_device_ms"] is not None:
         prod_ms = dev_ms - row_extra["row_device_ms"]
         row_extra.update(product_device_ms=prod_ms, product_tflops=flops / (prod_ms * 1e9))
     case = {"case": name, "shape": [m, d, n], "dtype": str(dtype).replace("torch.", ""), "delta": has_delta,
             "act": act, "norm": norm, "eps": eps, "x_new_bit_equal": True, "max_abs_err": err,
             "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "device_ms": dev_ms,
-            "tflops": flops / (dev_ms * 1e9), **row_extra, "plain_ms": plain_ms, "library_ms": None,
+            "tflops": None if dev_ms is None else flops / (dev_ms * 1e9), **row_extra, "plain_ms": plain_ms, "library_ms": None,
             # no one PyTorch call computes the prologue: addmm alone, for orientation
             "addmm_ms": addmm_ms, "library_device_ms": addmm_dev_ms, "bound_ms": bms, "bound_by": by}
     print(f"[prologue] {json.dumps(case)}")

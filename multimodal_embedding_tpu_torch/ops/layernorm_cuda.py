@@ -5,8 +5,8 @@ Counterpart of ``multimodal_embedding_tpu/ops/layernorm_pallas.py:
 fused_layer_norm``: f32 mean, then the variance as ``mean((x - mu)^2)`` in
 f32, scale and shift in f32, one rounding to x's dtype. As in the JAX
 package, nothing routes it: the towers take ``F.layer_norm``
-(``models/layers.py:layer_norm``) and the fused prologue normalizes inside
-its own kernel. It stays a tested, differentiable function.
+(``models/layers.py:layer_norm``) and the fused prologue normalizes in its
+own row pass. It stays a tested, differentiable function.
 
 :func:`fused_layer_norm` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version only for

@@ -12,8 +12,12 @@ at most 1e-5 in f32 and 1e-4 in bf16 (bf16 products are exact in f32, so
 only the order of the f32 sums differs); the prologue's x_new bit-equal to
 the plain version in the same dtype and its y, and LayerNorm, within
 max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 against the plain version in
-f32; stacked-QKV attention bit-equal to the attention kernel on contiguous
-copies of the three slices.
+f32; the prologue's row pass alone: x_new bit-equal and h within
+max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 of the plain row pass in the
+same dtype; the prologue's and LayerNorm's forwards equal with and without
+the autograd Function, and LayerNorm on misaligned scale and bias views equal
+to aligned copies; stacked-QKV attention bit-equal to the attention kernel on
+contiguous copies of the three slices.
 """
 
 import numpy as np
