@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -115,28 +116,35 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def device_ms(fn, iters: int = 10, windows: int = 5) -> float | None:
-    """Mean device time of the kernels ``fn`` launches per call, from a
-    torch.profiler window of ``iters`` calls: what ``ms`` reads less the host's
-    time before the launch, which dominates calls under about 0.2 ms. CUPTI
-    now and then hands back a window with no kernel record in it; such a
-    window is taken again, up to ``windows`` in all, and if none has one the
-    time is None ("not measured") and a note is printed."""
+def device_ms(fn, iters: int = 10, windows: int = 3, tries: int = 6) -> float | None:
+    """Mean device time of the kernels ``fn`` launches per call, from
+    torch.profiler windows of ``iters`` calls: what ``ms`` reads less the
+    host's time before the launch, which dominates calls under about 0.2 ms.
+    CUPTI now and then hands back a window with no kernel record in it, or
+    with only some of them (it then reads low): the result is the median of
+    ``windows`` windows that hold a record, each empty one taken again, up to
+    ``tries`` windows in all. With none, the time is None ("not measured")
+    and a note is printed."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(windows):
+    times = []
+    for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        total_us = sum(e.self_device_time_total for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
         if total_us > 0:
-            return total_us / iters / 1e3
-    print(f"[device_ms] not measured: the profiler saw no kernel record in {windows} windows")
-    return None
+            times.append(total_us / iters / 1e3)
+            if len(times) == windows:
+                break
+    if not times:
+        print(f"[device_ms] not measured: the profiler saw no kernel record in {tries} windows")
+        return None
+    return statistics.median(times)
 
 
 # --- phase 1 -------------------------------------------------------------------
