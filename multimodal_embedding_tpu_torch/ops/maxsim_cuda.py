@@ -11,7 +11,8 @@ count a masked doc token as ``-1e30``, apply the query mask as an f32 weight
 and sum over query tokens in f32; the result is f32 [NQ, ND].
 
 :func:`maxsim_cuda` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take. :func:`maxsim_scores` routes by ``impl``
+anything the kernel does not take; for bf16 it plans the kernel's grid with
+:func:`plan_grid` (queries per block, docs per slice). :func:`maxsim_scores` routes by ``impl``
 ("auto"/"pallas": the kernel for CUDA tensors, "xla": the plain version);
 tensors that lie on the CPU always take the plain version.
 """
@@ -19,6 +20,7 @@ tensors that lie on the CPU always take the plain version.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -35,7 +37,92 @@ _PLAIN_BLOCK_ELEMS = 1 << 28
 launches = 0
 
 _c = ctypes
-_ARGTYPES = [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 4 + [_c.c_void_p]
+_ARGTYPES = [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 4 + [_c.c_int] * 2 + [_c.c_void_p]
+
+# The bf16 kernel's tiles (csrc/maxsim.cu): 128 query rows a row tile, 64 a
+# warpgroup and 16 a warp; doc tokens in ring tiles of 128, each doc padded to
+# a multiple of 8 tokens; a sweep pays about _FILL_TILES tiles to fill its ring.
+_ROWS, _WG_ROWS, _BN, _FILL_TILES = 128, 64, 128, 3
+# Shared memory a block may spend on its per-(doc, row) maxima and its
+# accumulators, beside the 162 KB of query tile, ring and column bias.
+_SUMS_BUDGET = 64 * 1024
+
+
+@dataclass(frozen=True)
+class GridPlan:
+    """The bf16 kernel's grid: block b owns queries [q0, q0 + qpb) of group
+    b // nslices and docs [d0, d0 + dps) of slice b % nslices."""
+
+    nq: int
+    tq: int
+    nd: int
+    td: int
+    qpb: int  # whole queries per block
+    dps: int  # docs per slice
+    sms: int
+
+    @property
+    def ngroups(self) -> int:
+        return -(-self.nq // self.qpb)
+
+    @property
+    def nslices(self) -> int:
+        return -(-self.nd // self.dps)
+
+    @property
+    def nblocks(self) -> int:
+        return self.ngroups * self.nslices
+
+    @property
+    def td8(self) -> int:
+        return -(-self.td // 8) * 8
+
+    def blocks(self):
+        """(queries range, docs range) of every block, in launch order."""
+        for b in range(self.nblocks):
+            g, s = divmod(b, self.nslices)
+            q0, d0 = g * self.qpb, s * self.dps
+            yield range(q0, min(q0 + self.qpb, self.nq)), range(d0, min(d0 + self.dps, self.nd))
+
+    def row_tiles(self, nq_block: int):
+        """For a block of ``nq_block`` queries: each row tile's 128 rows as
+        (first row, rows) per warpgroup that has a real row; the rest of a
+        tile is padding the warpgroups never compute."""
+        nrows = nq_block * self.tq
+        for lr0 in range(0, nrows, _ROWS):
+            yield [(lr0 + w, min(_WG_ROWS, nrows - lr0 - w)) for w in (0, _WG_ROWS) if lr0 + w < nrows]
+
+
+def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
+    """Choose queries per block and docs per slice for the bf16 kernel.
+
+    A block takes the whole queries that fit a 128-row tile; longer queries
+    go 1, 2 or 4 to a block, their tokens flattened into 128-row tiles. The
+    docs are cut into slices. Of these, the plan minimizes the estimated
+    time: whole waves of blocks (one block an SM) times a block's ring tiles,
+    each slice's packed tokens plus the ring's fill, for every row tile. Ties
+    go to fewer queries per block, then fewer slices."""
+    td8 = -(-td // 8) * 8
+    best = None
+    for qpb in ([max(1, min(nq, _ROWS // tq))] if tq <= _ROWS else [q for q in (1, 2, 4) if q == 1 or q <= nq]):
+        nrt = -(-qpb * tq // _ROWS)
+        ngroups = -(-nq // qpb)
+        # the row maxima and accumulators in shared memory; positions
+        # pos * td8 < 2^40 keep the kernel's division by td8 a multiply
+        max_dps = min(nd, _SUMS_BUDGET // (4 * (_ROWS + qpb)))
+        while max_dps > 1 and (max_dps * td8 + _BN) * td8 >= 1 << 40:
+            max_dps //= 2
+        if (max_dps * td8 + _BN) * td8 >= 1 << 40:
+            raise ValueError(f"maxsim kernel takes at most about 2^20 doc tokens, not {td}")
+        s_min = -(-nd // max_dps)
+        for s in range(s_min, max(s_min, min(nd, 8 * sms)) + 1):
+            dps = -(-nd // s)
+            blocks = ngroups * -(-nd // dps)
+            cost = -(-blocks // sms) * nrt * (-(-dps * td8 // _BN) + _FILL_TILES)
+            if best is None or cost < best[0]:
+                best = (cost, qpb, dps)
+    _, qpb, dps = best
+    return GridPlan(nq=nq, tq=tq, nd=nd, td=td, qpb=qpb, dps=dps, sms=sms)
 
 
 def _masks(q, d, q_mask, d_mask):
@@ -101,12 +188,16 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
         raise ValueError(f"masks must be [NQ, TQ] = {(nq, tq)} and [ND, TD] = {(nd, td)}")
     if q.data_ptr() % 16 or d.data_ptr() % 16:
         raise ValueError("maxsim kernel needs 16-byte aligned embeddings")
+    plan = (0, 0)  # the f32 kernel plans its own grid
+    if q.dtype == torch.bfloat16:
+        g = plan_grid(nq, tq, nd, td, torch.cuda.get_device_properties(q.device).multi_processor_count)
+        plan = (g.qpb, g.dps)
     fn = build.load("maxsim").maxsim_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     code = fn(
         1 if q.dtype == torch.bfloat16 else 0, q.data_ptr(), d.data_ptr(),
         None if qm is None else qm.data_ptr(), None if dm is None else dm.data_ptr(), out.data_ptr(),
-        nq, tq, nd, td, dim, q.stride(0), q.stride(1), d.stride(0), d.stride(1),
+        nq, tq, nd, td, dim, q.stride(0), q.stride(1), d.stride(0), d.stride(1), *plan,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "maxsim kernel")

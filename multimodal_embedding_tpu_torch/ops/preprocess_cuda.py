@@ -26,11 +26,13 @@ from .preprocess import PreprocessConfig, _cropped_weights, make_preprocess_fn, 
 # Kernel launches made by preprocess_cuda (a plain count, read by chip_smoke.py).
 launches = 0
 
-_ROWS_PER_TILE = 32
-_SMEM_BUDGET = 200 * 1024  # bytes of horizontal-pass rows a block may hold
+_MAX_ROWS_PER_TILE = 32
+# Bytes a block stages in shared memory: its input rows and their horizontal
+# pass, all three channels; 56 KB lets four blocks share an SM.
+_SMEM_BUDGET = 56 * 1024
 
 _c = ctypes
-_ARGTYPES = [_c.c_void_p] * 7 + [_c.c_int] * 8 + [_c.c_float] * 6 + [_c.c_void_p]
+_ARGTYPES = [_c.c_void_p] * 7 + [_c.c_int] * 12 + [_c.c_float] * 6 + [_c.c_void_p]
 
 
 def nonzero_bands(m: np.ndarray) -> np.ndarray:
@@ -43,22 +45,53 @@ def nonzero_bands(m: np.ndarray) -> np.ndarray:
     return np.stack([lo, hi], axis=1).astype(np.int32)
 
 
-def row_tiles(vband: np.ndarray, c: int) -> tuple[int, np.ndarray]:
-    """(rows_per_tile, tiles [ntiles, 2]): for each tile of output rows, the
-    union [hlo, hhi) of its rows' vertical bands. The tile height halves
-    until a tile's horizontal-pass rows fit in shared memory."""
-    rows = _ROWS_PER_TILE
-    while True:
-        tiles = []
-        for o0 in range(0, vband.shape[0], rows):
-            band = vband[o0 : o0 + rows]
-            band = band[band[:, 1] > band[:, 0]]
-            tiles.append((band[:, 0].min(), band[:, 1].max()) if band.size else (0, 1))
-        tiles = np.asarray(tiles, np.int32)
+def smem_bytes(span: int, chunk_rows: int, c: int, w: int) -> int:
+    """Shared memory of a block (csrc/preprocess.cu): the uint8 horizontal
+    pass of ``span`` input rows [3, span, C], rounded up to 16 bytes, then
+    ``chunk_rows`` staged input rows [3, chunk_rows, w] (w: the staged
+    columns)."""
+    return -(-3 * span * c // 16) * 16 + 3 * chunk_rows * w
+
+
+def _tiles(vband: np.ndarray, rows: int) -> np.ndarray:
+    """For each tile of ``rows`` output rows, the union [hlo, hhi) of its
+    rows' vertical bands."""
+    tiles = []
+    for o0 in range(0, vband.shape[0], rows):
+        band = vband[o0 : o0 + rows]
+        band = band[band[:, 1] > band[:, 0]]
+        tiles.append((band[:, 0].min(), band[:, 1].max()) if band.size else (0, 1))
+    return np.asarray(tiles, np.int32)
+
+
+def staged_columns(hband: np.ndarray, w: int) -> tuple[int, int]:
+    """(xc0, xw): the input columns [xc0, xc0 + xw) a block stages, every
+    band's inside them, xc0 and (where the image allows) xw multiples of 16
+    for 16-byte copies."""
+    xc0 = int(hband[:, 0].min()) // 16 * 16
+    return xc0, min(w, -(-int(hband[:, 1].max()) // 16) * 16) - xc0
+
+
+def row_tiles(vband: np.ndarray, c: int, w: int) -> tuple[int, np.ndarray, int]:
+    """(rows_per_tile, tiles [ntiles, 2], chunk_rows): the tallest tile of at
+    most 32 output rows whose input rows, staged whole with their horizontal
+    pass, fit ``_SMEM_BUDGET`` (chunk_rows = the largest span). Where no
+    height fits (very wide or strongly downscaled images), the tallest whose
+    horizontal pass fits half the budget, staging its input rows in chunks
+    of chunk_rows."""
+    spans = {}
+    for rows in range(_MAX_ROWS_PER_TILE, 0, -1):
+        tiles = _tiles(vband, rows)
         span = int((tiles[:, 1] - tiles[:, 0]).max())
-        if span * c * 4 <= _SMEM_BUDGET or rows == 1:
-            return rows, tiles
-        rows //= 2
+        spans[rows] = tiles, span
+        if smem_bytes(span, span, c, w) <= _SMEM_BUDGET:
+            return rows, tiles, span
+    for rows in range(_MAX_ROWS_PER_TILE, 0, -1):
+        tiles, span = spans[rows]
+        if smem_bytes(span, 0, c, w) <= _SMEM_BUDGET // 2 or rows == 1:
+            chunk = max(1, (_SMEM_BUDGET - smem_bytes(span, 0, c, w)) // (3 * w))
+            return rows, tiles, min(chunk, span)
+    raise AssertionError("unreachable")
 
 
 @dataclass
@@ -75,6 +108,10 @@ class PreprocessWeights:
     tiles: torch.Tensor  # [ntiles, 2] int32
     rows_per_tile: int
     max_span: int
+    chunk_rows: int  # input rows a block stages at once
+    xc0: int  # first staged input column
+    xw: int  # staged input columns
+    vtaps: int  # the longest vertical band
     scale: tuple[float, float, float]
     shift: tuple[float, float, float]
 
@@ -95,7 +132,8 @@ def preprocess_weights(cfg: PreprocessConfig, h: int, w: int, device) -> Preproc
     whb = np.zeros((c, htaps), np.float32)
     for p, (lo, hi) in enumerate(hband):
         whb[p, : hi - lo] = wh_np[p, lo:hi]
-    rows, tiles = row_tiles(vband, c)
+    xc0, xw = staged_columns(hband, w)
+    rows, tiles, chunk = row_tiles(vband, c, xw)
     scale, shift = scale_shift(cfg)
 
     def dev(a):
@@ -103,7 +141,8 @@ def preprocess_weights(cfg: PreprocessConfig, h: int, w: int, device) -> Preproc
 
     return PreprocessWeights(
         h=h, w=w, c=c, whb=dev(whb), hband=dev(hband), wv=dev(wv_np), vband=dev(vband),
-        tiles=dev(tiles), rows_per_tile=rows, max_span=int((tiles[:, 1] - tiles[:, 0]).max()),
+        tiles=dev(tiles), rows_per_tile=rows, max_span=int((tiles[:, 1] - tiles[:, 0]).max()), chunk_rows=chunk,
+        xc0=xc0, xw=xw, vtaps=int((vband[:, 1] - vband[:, 0]).max()),
         scale=tuple(float(s) for s in scale), shift=tuple(float(s) for s in shift),
     )
 
@@ -126,7 +165,8 @@ def preprocess_cuda(images_u8: torch.Tensor, wts: PreprocessWeights) -> torch.Te
     code = fn(
         images_u8.data_ptr(), wts.whb.data_ptr(), wts.hband.data_ptr(), wts.wv.data_ptr(),
         wts.vband.data_ptr(), wts.tiles.data_ptr(), out.data_ptr(),
-        b, wts.h, wts.w, wts.c, wts.whb.shape[1], wts.rows_per_tile, wts.tiles.shape[0], wts.max_span,
+        b, wts.h, wts.w, wts.c, wts.whb.shape[1], wts.vtaps, wts.rows_per_tile, wts.tiles.shape[0],
+        wts.max_span, wts.chunk_rows, wts.xc0, wts.xw,
         *wts.scale, *wts.shift, torch.cuda.current_stream(images_u8.device).cuda_stream,
     )
     build.check(code, "preprocess kernel")

@@ -9,7 +9,7 @@ Tolerances as in chip_smoke.py: attention 1e-5 in f32 and 2e-2 in bf16
 against the plain version in f32 on the same inputs; preprocess at least
 99.9% bit-equal and within one quantization level; MaxSim max|d|/max|plain|
 at most 1e-5 in f32 and 1e-4 in bf16 (bf16 products are exact in f32, so
-only the order of the f32 sums differs); the prologue's x_new bit-equal to
+only the order of the f32 sums differs), and two calls bit-equal; the prologue's x_new bit-equal to
 the plain version in the same dtype and its y, and LayerNorm, within
 max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 against the plain version in
 f32; the prologue's row pass alone: x_new bit-equal and h within
@@ -184,6 +184,53 @@ def test_maxsim_kernel_matches_plain(dev, dtype, tol, nq, tq, nd, td, dim, maske
         np.testing.assert_allclose(got[:, 0].cpu().numpy(), want[:, 0].cpu().numpy(), rtol=1e-6)
         got, want = got[:, 1:], want[:, 1:]
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def _maxsim_inputs(dev, dtype, nq, tq, nd, td, dim, seed, masked=False, empty_doc=None):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((nq, tq, dim), dtype=np.float32)).to(dev, dtype)
+    d = torch.from_numpy(rng.standard_normal((nd, td, dim), dtype=np.float32)).to(dev, dtype)
+    qm = dm = None
+    if masked or empty_doc is not None:
+        qm = torch.from_numpy((rng.random((nq, tq)) > 0.2).astype(np.float32)).to(dev)
+        dm_np = rng.random((nd, td)) > (0.3 if masked else -1.0)
+        if empty_doc is not None:
+            dm_np[empty_doc] = False
+        dm = torch.from_numpy(dm_np).to(dev)
+    return q, d, qm, dm
+
+
+@pytest.mark.parametrize("nq,tq,nd,td,dim,masked,empty_doc", [
+    (6, 32, 7, 1030, 128, False, None),  # TD 1030: docs packed across 128-token ring tiles
+    (3, 1030, 9, 32, 128, False, None),  # TQ 1030: 17 row tiles of 64, the last with 6 rows
+    (5, 100, 11, 77, 128, True, None),  # TQ not a multiple of 64, TD not a multiple of 8
+    (4, 45, 6, 130, 8, True, None),  # D 8, warps spanning two queries
+    (9, 20, 13, 40, 16, False, None),  # D 16, six queries a row tile
+    (2, 64, 1001, 32, 128, False, None),  # ND not a multiple of any slice
+    (5, 33, 8, 129, 128, False, 3),  # a doc with no valid token, one token past a tile
+    (3, 40, 20, 16, 128, True, None),  # 8 whole docs a ring tile
+    (2, 70, 5, 128, 64, False, 1),  # one whole doc a ring tile, one with no valid token
+])
+def test_maxsim_bf16_kernel_edges(dev, nq, tq, nd, td, dim, masked, empty_doc):
+    q, d, qm, dm = _maxsim_inputs(dev, torch.bfloat16, nq, tq, nd, td, dim, 4, masked, empty_doc)
+    got = maxsim_cuda.maxsim_cuda(q, d, qm, dm)
+    torch.cuda.synchronize()
+    want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm)
+    if empty_doc is not None:  # exact sums of -1e30
+        np.testing.assert_allclose(got[:, empty_doc].cpu().numpy(), want[:, empty_doc].cpu().numpy(), rtol=1e-6)
+        keep = [j for j in range(nd) if j != empty_doc]
+        got, want = got[:, keep], want[:, keep]
+    assert bool(got.isfinite().all())
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_maxsim_kernel_is_deterministic(dev, dtype):
+    q, d, qm, dm = _maxsim_inputs(dev, dtype, 7, 1030, 40, 32, 128, 5, masked=True)
+    a = maxsim_cuda.maxsim_cuda(q, d, qm, dm)
+    b = maxsim_cuda.maxsim_cuda(q, d, qm, dm)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_maxsim_wrapper_raises_on_what_the_kernel_does_not_take(dev):

@@ -127,3 +127,115 @@ def test_impl_and_shapes_are_checked():
 
 def test_jax_backend_is_the_cpu():
     assert jax.default_backend() == "cpu"
+
+
+# --- the bf16 kernel's grid plan and index arithmetic --------------------------------
+
+PLAN_SHAPES = [  # (NQ, TQ, ND, TD): ColPali T2I and I2T, the COCO-5k fifth, edges
+    (128, 32, 128, 1030), (128, 1030, 640, 32), (1024, 1030, 5120, 32),
+    (37, 45, 29, 75), (9, 32, 13, 1030), (5, 1030, 21, 32), (7, 33, 11, 65), (3, 130, 9, 7),
+    (1, 1, 1, 1), (300, 5, 2, 3), (2, 128, 1, 129), (1, 64, 3, 8),
+]
+
+
+@pytest.mark.parametrize("nq,tq,nd,td", PLAN_SHAPES)
+def test_grid_plan_covers_every_pair_once(nq, tq, nd, td):
+    plan = maxsim_cuda.plan_grid(nq, tq, nd, td)
+    seen = np.zeros((nq, nd), int)
+    for qs, ds in plan.blocks():
+        assert 0 < len(qs) <= plan.qpb and 0 < len(ds) <= plan.dps
+        seen[qs.start : qs.stop, ds.start : ds.stop] += 1
+        rows = np.zeros(len(qs) * tq, int)  # every query row computed by one warpgroup once
+        for tile in plan.row_tiles(len(qs)):
+            for r0, n in tile:
+                rows[r0 : r0 + n] += 1
+        assert (rows == 1).all()
+    assert (seen == 1).all()
+    # shared memory of the sums and accumulators, and the exact division by td8
+    assert 4 * plan.dps * (128 + plan.qpb) <= maxsim_cuda._SUMS_BUDGET
+    assert (plan.dps * plan.td8 + 128) * plan.td8 < 1 << 40
+
+
+def test_grid_plan_fills_the_card_at_the_colpali_shapes():
+    t2i = maxsim_cuda.plan_grid(128, 32, 128, 1030)
+    i2t = maxsim_cuda.plan_grid(128, 1030, 640, 32)
+    assert (t2i.qpb, t2i.nblocks) == (4, 128)  # 4 captions a row tile, one wave on 132 SMs
+    assert i2t.qpb > 1 and i2t.nblocks % 132 > 120  # whole 1030-token image queries, near-whole waves
+    tiles = list(i2t.row_tiles(i2t.qpb))  # 1088 rows or fewer a query, not 1152
+    assert len(tiles) * 128 <= 1088 * i2t.qpb
+
+
+def _emulate_bf16_kernel(q, d, qm, dm, plan):
+    """numpy replay of csrc/maxsim.cu:wgmma_kernel's index arithmetic: the
+    packed doc tokens (td8 a doc, the division by td8 as a multiply), the
+    running max per 8-column group with its flush at each doc's last group
+    into per-(doc, row) values, and their per-(query, doc) sums over each row
+    tile. The similarities come from numpy in f64."""
+    nq, tq, _ = q.shape
+    nd, td, _ = d.shape
+    td8 = plan.td8
+    inv = ((1 << 40) + td8 - 1) // td8
+    out = np.zeros((nq, nd), np.float32)
+    for qs, ds in plan.blocks():
+        q0, d0, ndocs = qs.start, ds.start, len(ds)
+        nrows, total = len(qs) * tq, ndocs * td8
+        ncols = -(-total // 128) * 128
+        pos = np.arange(ncols)
+        doc = (pos * inv) >> 40
+        s = pos - doc * td8
+        valid = (pos < total) & (s < td)
+        src = np.where(valid, (d0 + np.minimum(doc, ndocs - 1)) * td + np.minimum(s, td - 1), 0)
+        valid &= dm.reshape(-1)[src]
+        dtok = d.reshape(-1, d.shape[2])[src]
+        accs = np.zeros((len(qs), ndocs), np.float32)
+        for lr0 in range(0, nrows, 128):
+            lr = lr0 + np.arange(128)
+            ql = np.where(lr < nrows, lr // tq, -1)
+            qrows = np.where((lr < nrows)[:, None], q[q0 + np.maximum(ql, 0), np.minimum(lr, nrows - 1) % tq], 0)
+            w = np.where(lr < nrows, qm[q0 + np.maximum(ql, 0), np.minimum(lr, nrows - 1) % tq], 0).astype(np.float32)
+            sim = np.where(valid[None, :], qrows @ dtok.T, -1e30).astype(np.float32)
+            rv = np.zeros((ndocs, 128), np.float32)
+            m = np.full(128, -1e30, np.float32)
+            cur = 0
+
+            def flush(cur, m):
+                rv[cur] = w * m
+
+            for t in range(ncols // 128):
+                p = t * 128
+                dcur = (p * inv) >> 40
+                off = p - dcur * td8
+                for g in range(16):
+                    if p >= total:
+                        break
+                    if dcur != cur:
+                        flush(cur, m)
+                        cur, m = dcur, np.full(128, -1e30, np.float32)
+                    m = np.maximum(m, sim[:, p : p + 8].max(1))
+                    p, off = p + 8, off + 8
+                    if off == td8:
+                        off, dcur = 0, dcur + 1
+            flush(cur, m)
+            lr1 = min(lr0 + 128, nrows)
+            for qq in range(lr0 // tq, (lr1 - 1) // tq + 1):
+                lo, hi = max(qq * tq, lr0) - lr0, min((qq + 1) * tq, lr1) - lr0
+                accs[qq] += rv[:, lo:hi].sum(1)
+        out[q0 : q0 + len(qs), d0 : d0 + ndocs] = accs
+    return out
+
+
+@pytest.mark.parametrize("nq,tq,nd,td,masked,empty_doc", [
+    (9, 32, 5, 260, False, False),  # T2I-like: 4 queries a row tile, docs crossing ring tiles
+    (3, 150, 21, 32, False, False),  # I2T-like: a query over two row tiles, 4 docs a ring tile
+    (7, 13, 9, 19, True, True),  # warps spanning 2 queries, TD not a multiple of 8, masks
+    (4, 5, 40, 7, True, False),  # 16-row warps over 4 queries, 16 docs a ring tile
+])
+def test_bf16_kernel_index_arithmetic_matches_plain(nq, tq, nd, td, masked, empty_doc):
+    (_, _, _, _), (q, d, qm, dm) = _problem(6, nq, tq, nd, td, 8, "float32", masked, empty_doc)
+    want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm).numpy()
+    plan = maxsim_cuda.plan_grid(nq, tq, nd, td, sms=8)  # several slices and groups
+    got = _emulate_bf16_kernel(q.numpy(), d.numpy(), qm.numpy(), dm.numpy(), plan)
+    if empty_doc:
+        np.testing.assert_allclose(got[:, nd // 2], want[:, nd // 2], rtol=1e-6)
+        got, want = np.delete(got, nd // 2, 1), np.delete(want, nd // 2, 1)
+    assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
