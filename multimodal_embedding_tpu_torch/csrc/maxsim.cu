@@ -25,9 +25,10 @@
 // bf16 design (wgmma_kernel). A GEMM whose epilogue is a masked running max,
 // then a weighted sum, never written out as similarities:
 //  - a block of two warpgroups owns a group of whole queries (qpb of them:
-//    4 text queries of 32 tokens fill 128 rows, 2 image queries of 1030
-//    tokens 17 row tiles, 1088 rows each) and a slice of docs; the grid is
-//    planned in ops/maxsim_cuda.py:plan_grid to fill the SMs in whole waves;
+//    4 text queries of 32 tokens fill 128 rows; 1, 2 or 4 image queries of
+//    1030 tokens, 4 taking 33 row tiles, at most 1088 rows a query) and a
+//    slice of docs; the grid is planned in ops/maxsim_cuda.py:plan_grid to
+//    fill the SMs in whole waves;
 //  - the queries' tokens, flattened, are walked in row tiles of 128 rows;
 //    each row tile stays resident in shared memory (128B-swizzled) for the
 //    whole sweep over the slice's docs, one warpgroup on each 64 rows (D is
@@ -47,8 +48,9 @@
 //    shuffles, weighted by qm and stored per (doc, row); after the sweep one
 //    warp per (query, doc) sums its rows in a fixed order into the block's
 //    accumulator, which is written out once.
-// f32 inputs keep the PR 2 design (f32_kernel): plain FMA in the mma.sync
-// fragment layout (no TF32), a double-buffered ring of 32 or 64 doc tokens.
+// f32 inputs keep the first design (f32_kernel): plain FMA in the mma.sync
+// fragment layout (no TF32), a double-buffered ring of 32 or 64 doc tokens,
+// 8 docs a block; no main path feeds MaxSim f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -517,7 +519,7 @@ int launch_bf16(WParams p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: the PR 2 design, FMA in the mma.sync fragment layout
+// f32: FMA in the mma.sync fragment layout
 // ---------------------------------------------------------------------------
 
 constexpr int kWarps = 8;

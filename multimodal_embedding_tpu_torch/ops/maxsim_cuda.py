@@ -12,14 +12,15 @@ and sum over query tokens in f32; the result is f32 [NQ, ND].
 
 :func:`maxsim_cuda` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; for bf16 it plans the kernel's grid with
-:func:`plan_grid` (queries per block, docs per slice). :func:`maxsim_scores` routes by ``impl``
-("auto"/"pallas": the kernel for CUDA tensors, "xla": the plain version);
-tensors that lie on the CPU always take the plain version.
+:func:`plan_grid` (queries per block, docs per slice). :func:`maxsim_scores`
+routes by ``impl`` ("auto"/"pallas": the kernel for CUDA tensors, "xla": the
+plain version); tensors that lie on the CPU always take the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -39,10 +40,10 @@ launches = 0
 _c = ctypes
 _ARGTYPES = [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 4 + [_c.c_int] * 2 + [_c.c_void_p]
 
-# The bf16 kernel's tiles (csrc/maxsim.cu): 128 query rows a row tile, 64 a
-# warpgroup and 16 a warp; doc tokens in ring tiles of 128, each doc padded to
-# a multiple of 8 tokens; a sweep pays about _FILL_TILES tiles to fill its ring.
-_ROWS, _WG_ROWS, _BN, _FILL_TILES = 128, 64, 128, 3
+# The bf16 kernel's tiles (csrc/maxsim.cu): 128 query rows a row tile; doc
+# tokens in ring tiles of 128, each doc padded to a multiple of 8 tokens; a
+# sweep pays about _FILL_TILES tiles to fill its ring.
+_ROWS, _BN, _FILL_TILES = 128, 128, 3
 # Shared memory a block may spend on its per-(doc, row) maxima and its
 # accumulators, beside the 162 KB of query tile, ring and column bias.
 _SUMS_BUDGET = 64 * 1024
@@ -59,7 +60,6 @@ class GridPlan:
     td: int
     qpb: int  # whole queries per block
     dps: int  # docs per slice
-    sms: int
 
     @property
     def ngroups(self) -> int:
@@ -84,15 +84,8 @@ class GridPlan:
             q0, d0 = g * self.qpb, s * self.dps
             yield range(q0, min(q0 + self.qpb, self.nq)), range(d0, min(d0 + self.dps, self.nd))
 
-    def row_tiles(self, nq_block: int):
-        """For a block of ``nq_block`` queries: each row tile's 128 rows as
-        (first row, rows) per warpgroup that has a real row; the rest of a
-        tile is padding the warpgroups never compute."""
-        nrows = nq_block * self.tq
-        for lr0 in range(0, nrows, _ROWS):
-            yield [(lr0 + w, min(_WG_ROWS, nrows - lr0 - w)) for w in (0, _WG_ROWS) if lr0 + w < nrows]
 
-
+@functools.lru_cache(maxsize=256)
 def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
     """Choose queries per block and docs per slice for the bf16 kernel.
 
@@ -101,10 +94,11 @@ def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
     docs are cut into slices. Of these, the plan minimizes the estimated
     time: whole waves of blocks (one block an SM) times a block's ring tiles,
     each slice's packed tokens plus the ring's fill, for every row tile. Ties
-    go to fewer queries per block, then fewer slices."""
+    go to fewer queries per block, then fewer slices. Cached: a call is a
+    few thousand candidate plans."""
     td8 = -(-td // 8) * 8
     best = None
-    for qpb in ([max(1, min(nq, _ROWS // tq))] if tq <= _ROWS else [q for q in (1, 2, 4) if q == 1 or q <= nq]):
+    for qpb in [max(1, min(nq, _ROWS // tq))] if tq <= _ROWS else [q for q in (1, 2, 4) if q <= max(1, nq)]:
         nrt = -(-qpb * tq // _ROWS)
         ngroups = -(-nq // qpb)
         # the row maxima and accumulators in shared memory; positions
@@ -122,7 +116,7 @@ def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
             if best is None or cost < best[0]:
                 best = (cost, qpb, dps)
     _, qpb, dps = best
-    return GridPlan(nq=nq, tq=tq, nd=nd, td=td, qpb=qpb, dps=dps, sms=sms)
+    return GridPlan(nq=nq, tq=tq, nd=nd, td=td, qpb=qpb, dps=dps)
 
 
 def _masks(q, d, q_mask, d_mask):

@@ -88,10 +88,10 @@ def row_tiles(vband: np.ndarray, c: int, w: int) -> tuple[int, np.ndarray, int]:
             return rows, tiles, span
     for rows in range(_MAX_ROWS_PER_TILE, 0, -1):
         tiles, span = spans[rows]
-        if smem_bytes(span, 0, c, w) <= _SMEM_BUDGET // 2 or rows == 1:
-            chunk = max(1, (_SMEM_BUDGET - smem_bytes(span, 0, c, w)) // (3 * w))
-            return rows, tiles, min(chunk, span)
-    raise AssertionError("unreachable")
+        if smem_bytes(span, 0, c, w) <= _SMEM_BUDGET // 2:
+            break
+    chunk = max(1, (_SMEM_BUDGET - smem_bytes(span, 0, c, w)) // (3 * w))
+    return rows, tiles, min(chunk, span)
 
 
 @dataclass
@@ -141,8 +141,8 @@ def preprocess_weights(cfg: PreprocessConfig, h: int, w: int, device) -> Preproc
 
     return PreprocessWeights(
         h=h, w=w, c=c, whb=dev(whb), hband=dev(hband), wv=dev(wv_np), vband=dev(vband),
-        tiles=dev(tiles), rows_per_tile=rows, max_span=int((tiles[:, 1] - tiles[:, 0]).max()), chunk_rows=chunk,
-        xc0=xc0, xw=xw, vtaps=int((vband[:, 1] - vband[:, 0]).max()),
+        tiles=dev(tiles), rows_per_tile=rows, max_span=int((tiles[:, 1] - tiles[:, 0]).max()),
+        chunk_rows=chunk, xc0=xc0, xw=xw, vtaps=int((vband[:, 1] - vband[:, 0]).max()),
         scale=tuple(float(s) for s in scale), shift=tuple(float(s) for s in shift),
     )
 

@@ -138,6 +138,13 @@ PLAN_SHAPES = [  # (NQ, TQ, ND, TD): ColPali T2I and I2T, the COCO-5k fifth, edg
 ]
 
 
+def _row_tiles(nrows):
+    """The kernel's row tiles of a block's ``nrows`` flattened rows: per tile,
+    (first row, rows) of each warpgroup (64 rows) that holds a real row."""
+    for lr0 in range(0, nrows, 128):
+        yield [(lr0 + w, min(64, nrows - lr0 - w)) for w in (0, 64) if lr0 + w < nrows]
+
+
 @pytest.mark.parametrize("nq,tq,nd,td", PLAN_SHAPES)
 def test_grid_plan_covers_every_pair_once(nq, tq, nd, td):
     plan = maxsim_cuda.plan_grid(nq, tq, nd, td)
@@ -146,7 +153,7 @@ def test_grid_plan_covers_every_pair_once(nq, tq, nd, td):
         assert 0 < len(qs) <= plan.qpb and 0 < len(ds) <= plan.dps
         seen[qs.start : qs.stop, ds.start : ds.stop] += 1
         rows = np.zeros(len(qs) * tq, int)  # every query row computed by one warpgroup once
-        for tile in plan.row_tiles(len(qs)):
+        for tile in _row_tiles(len(qs) * tq):
             for r0, n in tile:
                 rows[r0 : r0 + n] += 1
         assert (rows == 1).all()
@@ -161,7 +168,7 @@ def test_grid_plan_fills_the_card_at_the_colpali_shapes():
     i2t = maxsim_cuda.plan_grid(128, 1030, 640, 32)
     assert (t2i.qpb, t2i.nblocks) == (4, 128)  # 4 captions a row tile, one wave on 132 SMs
     assert i2t.qpb > 1 and i2t.nblocks % 132 > 120  # whole 1030-token image queries, near-whole waves
-    tiles = list(i2t.row_tiles(i2t.qpb))  # 1088 rows or fewer a query, not 1152
+    tiles = list(_row_tiles(i2t.qpb * 1030))  # 1088 rows or fewer a query, not 1152
     assert len(tiles) * 128 <= 1088 * i2t.qpb
 
 
