@@ -10,8 +10,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
      nvcc per source, all at once) and print the build seconds;
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (OpenAI-CLIP-L, ColPali-v1.3 and the fused encoder
-     layer's, plus attention at ViT-H's Dh 80 and at a 4096-key row, and
-     MaxSim at a fifth of COCO-5k's I2T, checked on its first 64 queries),
+     layer's; the ViT-H and SigLIP-So400m towers, the MAP head's one probe
+     row over 729 keys, and the four other models' preprocess recipes; plus
+     attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
+     checked on its first 64 queries),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -22,16 +24,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
      on the synthetic dataset at the model's published architecture with
      random weights: OpenAI-CLIP-L (dense), ColPali-v1.3 (multi-vector,
      MaxSim scoring), then OpenAI-CLIP-L again under ``--layer-impl fused``
-     (the prologue and stacked-QKV attention kernels in every encoder layer);
-     each path's launch counts are set to 0 just before it and read just
-     after, and every kernel of the path must have launched;
+     (the prologue and stacked-QKV attention kernels in every encoder layer),
+     then the other five benchmark models in one CLI run (LAION-CLIP-H,
+     MetaCLIP-H14, Apple-DFN5B-H, SigLIP-400M, Jina-CLIP-v1; 128 images, 100
+     bootstrap iterations), each model's weights released before the next
+     loads; each model's launch counts are set to 0 just before its
+     benchmark and read just after, every kernel of its path must have
+     launched (Jina's towers have no attention kernel route: preprocess
+     only), and its QPS and peak device memory are printed;
   4. a bench-shaped throughput line (bench.py's run_once: 288 images of
      480x640, batch 96, three timed passes from the staged cache);
   5. full-width consistency: CLS embeddings of 8 images through the kernels
      in bf16, under both layer impls, against the plain versions in f32,
      per-row cosine >= 0.999; ColPali per-token embeddings of 2 images and 4
      captions, the same way, per-token cosine >= 0.99 over valid tokens and
-     exact-zero pad tokens.
+     exact-zero pad tokens; pooled embeddings of 8 images and 8 captions of
+     each of the other five models, the same way (ViT-H and SigLIP under both
+     layer impls, Jina on its own path), per-row cosine >= 0.999.
 
 The last three lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
@@ -89,6 +98,12 @@ CLI_ARGS = [
 ]
 COLPALI_CLI_ARGS = [
     "--dataset", "synthetic", "--arch-models", "--models", "ColPali-v1.3",
+    "--sample-size", "128", "--bootstrap-iterations", "100",
+]
+# the other five benchmark models in one CLI run (registry batch: 32 images)
+OTHER_MODELS = ("LAION-CLIP-H", "MetaCLIP-H14", "Apple-DFN5B-H", "SigLIP-400M", "Jina-CLIP-v1")
+OTHER_CLI_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", ",".join(OTHER_MODELS),
     "--sample-size", "128", "--bootstrap-iterations", "100",
 ]
 REFERENCE_COLUMNS = (
@@ -168,7 +183,8 @@ def phase_build() -> float:
 # --- phase 2 -------------------------------------------------------------------
 
 
-def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, full_mask_rows, rng):
+def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, full_mask_rows, rng, tq=None):
+    """``tq`` query rows (default ``t``) against ``t`` keys."""
     import torch
     import torch.nn.functional as F
 
@@ -176,14 +192,15 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
 
     dev = torch.device("cuda")
+    tq = t if tq is None else tq
 
     def rand(shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
 
     if layout == "packed":
-        q, k, v = rand((b, t, h * dh)), rand((b, t, kvh * dh)), rand((b, t, kvh * dh))
+        q, k, v = rand((b, tq, h * dh)), rand((b, t, kvh * dh)), rand((b, t, kvh * dh))
     else:
-        q, k, v = rand((b, h, t, dh)), rand((b, kvh, t, dh)), rand((b, kvh, t, dh))
+        q, k, v = rand((b, h, tq, dh)), rand((b, kvh, t, dh)), rand((b, kvh, t, dh))
     km = None
     if masked:
         lengths = rng.integers(3, t + 1, size=b)
@@ -208,7 +225,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     require(max_rel <= rel_tol and mean_rel <= rel_tol,
             f"attention {name}: relative err max {max_rel}, mean {mean_rel} > {rel_tol}")
     if full_mask_rows:
-        o4 = out if layout == "bhtd" else out.reshape(b, t, h, dh).transpose(1, 2)
+        o4 = out if layout == "bhtd" else out.reshape(b, tq, h, dh).transpose(1, 2)
         require(bool((o4[-1] == 0).all()), f"attention {name}: fully masked sequence not exact zeros")
         if causal:
             require(bool((o4[0, :, 0] == 0).all()), f"attention {name}: fully masked row not exact zeros")
@@ -217,26 +234,26 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     dev_ms = device_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
     plain_ms = cuda_time_ms(lambda: attention_cuda._plain(q, k, v, km, causal, scale, layout, h, kvh))
 
-    def bhtd(x, nh):
-        return x if layout == "bhtd" else x.reshape(b, t, nh, dh).transpose(1, 2)
+    def bhtd(x, nh, n):
+        return x if layout == "bhtd" else x.reshape(b, n, nh, dh).transpose(1, 2)
 
-    q4, k4, v4 = bhtd(q, h), bhtd(k, kvh), bhtd(v, kvh)
+    q4, k4, v4 = bhtd(q, h, tq), bhtd(k, kvh, t), bhtd(v, kvh, t)
     if kvh != h:
         k4, v4 = k4.repeat_interleave(h // kvh, 1), v4.repeat_interleave(h // kvh, 1)
-    valid = torch.ones(b, 1, t, t, dtype=torch.bool, device=dev)
+    valid = torch.ones(b, 1, tq, t, dtype=torch.bool, device=dev)
     if km is not None:
         valid = valid & km.bool()[:, None, None, :]
     if causal:
-        valid = valid & torch.ones(t, t, dtype=torch.bool, device=dev).tril()
+        valid = valid & torch.ones(tq, t, dtype=torch.bool, device=dev).tril()
     attn_mask = valid if (masked or causal) else None
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask))
 
     es = q.element_size()
     pairs = float(valid.sum()) * h  # (batch, head, query, key) pairs the function needs
     flops = 4.0 * pairs * dh
-    nbytes = es * dh * (2 * b * t * h + 2 * b * t * kvh) + (b * t if km is not None else 0)
+    nbytes = es * dh * (2 * b * tq * h + 2 * b * t * kvh) + (b * t if km is not None else 0)
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
-    case = {"case": name, "shape": [b, h, kvh, t, dh], "dtype": str(dtype).replace("torch.", ""),
+    case = {"case": name, "shape": [b, h, kvh, t, dh], "queries": tq, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
     print(f"[attention] {json.dumps(case)}")
@@ -530,6 +547,22 @@ def attention_cases() -> list[tuple[str, dict]]:
                               layout="packed", full_mask_rows=False)),
         ("long key row bhtd", dict(b=1, h=2, kvh=2, t=4096, dh=64, dtype=bf16, causal=False, masked=False,
                                    layout="bhtd", full_mask_rows=False)),
+        # the other five models' paths (32 images, 128 captions a batch):
+        # SigLIP-So400m's vision tower (729 tokens, Dh 72), its MAP head (one
+        # probe row over those 729 keys) and its text tower (64 tokens, key
+        # mask, not causal); DFN5B at 378 px (730 tokens, Dh 80); the ViT-H
+        # text tower (77 tokens, Dh 64, causal with a key mask)
+        ("siglip-400m vision packed", dict(b=32, h=16, kvh=16, t=729, dh=72, dtype=bf16, causal=False,
+                                           masked=False, layout="packed", full_mask_rows=False)),
+        ("siglip-400m map head packed 1x729", dict(b=32, h=16, kvh=16, t=729, tq=1, dh=72, dtype=bf16,
+                                                   causal=False, masked=False, layout="packed",
+                                                   full_mask_rows=False)),
+        ("siglip-400m text packed mask", dict(b=128, h=16, kvh=16, t=64, dh=72, dtype=bf16, causal=False,
+                                              masked=True, layout="packed", full_mask_rows=False)),
+        ("dfn5b vision packed", dict(b=32, h=16, kvh=16, t=730, dh=80, dtype=bf16, causal=False, masked=False,
+                                     layout="packed", full_mask_rows=False)),
+        ("vit-h text packed causal+mask", dict(b=128, h=16, kvh=16, t=77, dh=64, dtype=bf16, causal=True,
+                                               masked=True, layout="packed", full_mask_rows=False)),
     ]
 
 
@@ -550,6 +583,7 @@ def prologue_cases() -> list[tuple[str, dict]]:
         ("clip text b128 mlp", dict(m=txt, d=768, n=3072, dtype=bf16, has_delta=True, act="quick_gelu")),
         ("siglip-448 b8 mlp", dict(m=sig, d=1152, n=4304, dtype=bf16, has_delta=True, act="gelu_pytorch_tanh",
                                    eps=1e-6)),
+        ("vit-h b32 mlp", dict(m=32 * 257, d=1280, n=5120, dtype=bf16, has_delta=True, act="gelu")),
         ("first sublayer, no delta (vit-l b64 qkv)", dict(m=vit, d=1024, n=3072, dtype=bf16, has_delta=False,
                                                           act=None)),
         ("rms_gemma", dict(m=4096, d=2048, n=1024, dtype=bf16, has_delta=True, act=None, norm="rms_gemma",
@@ -573,6 +607,10 @@ def preprocess_cases() -> list[tuple[str, dict]]:
     cases = [(f"OpenAI-CLIP-L shortest_edge {h}x{w}->336", dict(h=h, w=w, b=64))
              for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
     cases.append(("ColPali-v1.3 exact 480x640->448", dict(h=480, w=640, b=8, model="ColPali-v1.3")))
+    # the other models' recipes (MetaCLIP-H14's is LAION-CLIP-H's)
+    for model, recipe, size in (("LAION-CLIP-H", "shortest_edge", 224), ("Apple-DFN5B-H", "shortest_edge", 378),
+                                ("SigLIP-400M", "exact", 384), ("Jina-CLIP-v1", "exact bicubic", 224)):
+        cases.append((f"{model} {recipe} 480x640->{size}", dict(h=480, w=640, b=32, model=model)))
     return cases
 
 
@@ -694,11 +732,17 @@ def _counters() -> dict:
             "fused_attention_qkv": (attention_cuda, "qkv_launches"), "fused_layer_norm": (layernorm_cuda, "launches")}
 
 
-def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[dict, dict, list]:
-    """Run the port's CLI in-process with every launch count set to 0 just
-    before; returns (the CSV row, the counts just after, the shapes and
-    finiteness of the score matrices it built)."""
+def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
+    """Run the port's CLI in-process. For each model it runs, every launch
+    count is set to 0 just before its benchmark and read just after, and
+    every kernel that ``names_for(model)`` names must have launched. Returns
+    one dict a model, in the CLI's order: its CSV ``row``, its ``counts``, the
+    shapes and finiteness of the score matrices it built (``scores``), its
+    peak device memory (``peak_bytes``; the CLI resets the peak as each
+    model begins) and the device memory in use as it began to load
+    (``in_use_before_load``)."""
     import pandas as pd
+    import torch
 
     from multimodal_embedding_tpu_torch.cli import main as cli
 
@@ -706,38 +750,53 @@ def _main_path(args: list[str], csv_name: str, names: tuple[str, ...]) -> tuple[
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / csv_name
     out.unlink(missing_ok=True)
-    scores = []
-    compute = cli.compute_score_matrices
+    runs: list[dict] = []
+    load, bench, compute = cli._load, cli.run_bootstrap_benchmark, cli.compute_score_matrices
+
+    def loading(info, *a, **kw):
+        runs.append({"model": info.name, "in_use_before_load": torch.cuda.memory_allocated(), "scores": []})
+        return load(info, *a, **kw)
+
+    def benchmarking(*a, **kw):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        try:
+            return bench(*a, **kw)
+        finally:
+            runs[-1]["counts"] = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+            runs[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
 
     def recording(*a, **kw):  # reads the matrices after the timed encode
         s_t2i, s_i2t, t = compute(*a, **kw)
-        scores.extend((tuple(s.shape), bool(s.isfinite().all())) for s in (s_t2i, s_i2t))
+        runs[-1]["scores"].extend((tuple(s.shape), bool(s.isfinite().all())) for s in (s_t2i, s_i2t))
         return s_t2i, s_i2t, t
 
-    cli.compute_score_matrices = recording
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    cli._load, cli.run_bootstrap_benchmark, cli.compute_score_matrices = loading, benchmarking, recording
     try:
         rc = cli.main([*args, "--output", str(out)])
     finally:
-        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
-        cli.compute_score_matrices = compute
+        cli._load, cli.run_bootstrap_benchmark, cli.compute_score_matrices = load, bench, compute
     require(rc == 0, f"main path CLI {args} exited {rc}")
     df = pd.read_csv(out)
     require(list(df.columns) == REFERENCE_COLUMNS, f"CSV columns {list(df.columns)}")
-    row = df.iloc[0]
-    for col in REFERENCE_COLUMNS[2:-5]:
-        val = float(row[col])
-        require(math.isfinite(val) and (0.0 <= val <= 100.0 or col.endswith("_std")), f"{col} = {val}")
-    require(float(row["QPS"]) > 0, f"QPS {row['QPS']}")
-    for n in names:
-        require(counts[n] > 0, f"kernel {n} was not launched on the {row['Model']} main path")
-    print(f"[main] {row['Model']} weights={row['Weights']} QPS={float(row['QPS'])} "
-          f"Encoding_Time={float(row['Encoding_Time'])} Time={float(row['Time'])} "
-          f"Time-Encoding_Time={float(row['Time']) - float(row['Encoding_Time'])} "
-          f"T2I_R@1={float(row['T2I_R@1_mean'])} T2I_R@10={float(row['T2I_R@10_mean'])} "
-          f"I2T_R@10={float(row['I2T_R@10_mean'])} launches={json.dumps(counts)} scores={scores}")
-    return row, counts, scores
+    require(list(df["Model"]) == [r["model"] for r in runs], f"CSV rows {list(df['Model'])} for {runs}")
+    for (_, row), run in zip(df.iterrows(), runs):
+        for col in REFERENCE_COLUMNS[2:-5]:
+            val = float(row[col])
+            require(math.isfinite(val) and (0.0 <= val <= 100.0 or col.endswith("_std")), f"{col} = {val}")
+        require(float(row["QPS"]) > 0, f"QPS {row['QPS']}")
+        counts = run["counts"]
+        for n in names_for(run["model"]):
+            require(counts[n] > 0, f"kernel {n} was not launched on the {row['Model']} main path")
+        run["row"] = row
+        print(f"[main] {row['Model']} weights={row['Weights']} QPS={float(row['QPS'])} "
+              f"Encoding_Time={float(row['Encoding_Time'])} Time={float(row['Time'])} "
+              f"Time-Encoding_Time={float(row['Time']) - float(row['Encoding_Time'])} "
+              f"T2I_R@1={float(row['T2I_R@1_mean'])} T2I_R@10={float(row['T2I_R@10_mean'])} "
+              f"I2T_R@10={float(row['I2T_R@10_mean'])} peak_memory_bytes={run['peak_bytes']} "
+              f"in_use_before_load={run['in_use_before_load']} launches={json.dumps(counts)} "
+              f"scores={run['scores']}")
+    return runs
 
 
 def phase_main_path(kernels: list[dict]) -> None:
@@ -745,9 +804,11 @@ def phase_main_path(kernels: list[dict]) -> None:
 
     from multimodal_embedding_tpu_torch.models import layers
 
-    clip_row, clip_counts, _ = _main_path(CLI_ARGS, "main_path.csv", ("fused_attention", "preprocess"))
+    (clip,) = _main_path(CLI_ARGS, "main_path.csv", lambda m: ("fused_attention", "preprocess"))
+    clip_row, clip_counts = clip["row"], clip["counts"]
     torch.cuda.empty_cache()
-    row, counts, scores = _main_path(COLPALI_CLI_ARGS, "colpali.csv", ("fused_attention", "preprocess", "maxsim"))
+    (colpali,) = _main_path(COLPALI_CLI_ARGS, "colpali.csv", lambda m: ("fused_attention", "preprocess", "maxsim"))
+    row, counts, scores = colpali["row"], colpali["counts"], colpali["scores"]
     n = 128
     want = [((n, n), True), ((n, 5 * n), True)]
     require(scores == want, f"ColPali score matrices {scores}, want {want} (shape, all finite)")
@@ -756,11 +817,11 @@ def phase_main_path(kernels: list[dict]) -> None:
     require(float(row["T2I_R@10_mean"]) < 100.0, f"ColPali T2I R@10 {row['T2I_R@10_mean']}")
     torch.cuda.empty_cache()
     try:
-        fused_row, fused_counts, _ = _main_path(
-            [*CLI_ARGS, "--layer-impl", "fused"], "main_path_fused.csv",
-            ("fused_res_norm_matmul", "fused_attention_qkv", "preprocess"))
+        (fused,) = _main_path([*CLI_ARGS, "--layer-impl", "fused"], "main_path_fused.csv",
+                              lambda m: ("fused_res_norm_matmul", "fused_attention_qkv", "preprocess"))
     finally:
         layers.set_layer_impl("auto")
+    fused_row, fused_counts = fused["row"], fused["counts"]
     # every encoder layer of both towers: one stacked-QKV attention where the
     # xla layer ran one fused_attention, and two prologues (24 x 2 per image
     # batch, 12 x 2 per text batch)
@@ -772,11 +833,31 @@ def phase_main_path(kernels: list[dict]) -> None:
           f"--layer-impl fused {float(fused_row['QPS'])} (same script run); fused launches "
           f"prologue {fused_counts['fused_res_norm_matmul']}, stacked-QKV attention "
           f"{fused_counts['fused_attention_qkv']}, preprocess {fused_counts['preprocess']}")
-    paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts}
+    torch.cuda.empty_cache()
+    # the other five models: attention and preprocess on the ViT-H and SigLIP
+    # paths; Jina's towers keep their attention inline (no kernel route in
+    # the JAX package either), so preprocess alone
+    others = _main_path(OTHER_CLI_ARGS, "other_models.csv",
+                        lambda m: ("preprocess",) if m == "Jina-CLIP-v1" else ("fused_attention", "preprocess"))
+    require([r["model"] for r in others] == list(OTHER_MODELS), f"models run {[r['model'] for r in others]}")
+    base = others[0]["in_use_before_load"]  # the staged images alone
+    for r in others:
+        require(r["scores"] == want, f"{r['model']} score matrices {r['scores']}, want {want}")
+        # each model's weights and activations were released before the next
+        # loaded (the margin: cuBLAS workspaces the first model allocated)
+        require(r["in_use_before_load"] <= base + (256 << 20),
+                f"{r['model']}: {r['in_use_before_load']} bytes in use as it began to load, {base} before the first")
+    jina = others[-1]["counts"]
+    require(jina["fused_attention"] == 0, f"Jina-CLIP-v1 launched the attention kernel: {jina}")
+    print("[main] other models: " + "; ".join(
+        f"{r['model']} QPS={float(r['row']['QPS'])} peak_memory_GB={r['peak_bytes'] / 1e9:.3f} "
+        f"attention={r['counts']['fused_attention']} preprocess={r['counts']['preprocess']}" for r in others))
+    paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts,
+             **{r["model"]: r["counts"] for r in others}}
     for k in kernels:
-        # each kernel's launches on the path that runs it: ColPali for the
-        # first three, the fused CLIP-L path for this slice's; no path runs
-        # fused_layer_norm (0)
+        # each kernel's launches on the path that runs it: ColPali for
+        # attention, preprocess and MaxSim, the fused CLIP-L path for the
+        # prologue and stacked-QKV attention; no path runs fused_layer_norm (0)
         k["launches"] = (fused_counts if k["name"] in ("fused_res_norm_matmul", "fused_attention_qkv",
                                                        "fused_layer_norm") else counts)[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
@@ -846,6 +927,12 @@ def phase_bench_and_consistency() -> None:
     require(bool((cos_f >= COSINE_MIN).all()), f"fused cosine {float(cos_f.min())} < {COSINE_MIN}")
 
 
+CAPTIONS = ["a dog", "two people riding bicycles along a river at sunset",
+            "a red car parked next to a tall building on a busy street", "kitchen",
+            "a plate of food on a wooden table", "a man holding an umbrella in the rain",
+            "three zebras standing in a grassy field near some trees", "a clock tower"]
+
+
 def phase_colpali_consistency() -> None:
     """ColPali-v1.3 at full width, the same random weights: per-token
     embeddings of 2 images and 4 captions through the kernels in bf16 against
@@ -860,8 +947,7 @@ def phase_colpali_consistency() -> None:
 
     dev = torch.device("cuda")
     images = _bench_images(2)
-    captions = ["a dog", "two people riding bicycles along a river at sunset",
-                "a red car parked next to a tall building on a busy street", "kitchen"]
+    captions = CAPTIONS[:4]
     model = load_arch_model("ColPali-v1.3", seed=0, device=dev, dtype=torch.bfloat16)
     layers.set_attention_impl("auto")
     engine = EncodingEngine(model, batch_size=2, device=dev, preprocess_impl="auto")
@@ -895,6 +981,53 @@ def phase_colpali_consistency() -> None:
     require(worst >= COLPALI_COSINE_MIN, f"ColPali per-token cosine {worst} < {COLPALI_COSINE_MIN}")
 
 
+def phase_other_models_consistency() -> None:
+    """The other five models at full width, the same random weights: pooled
+    embeddings of 8 images and 8 captions through the kernels in bf16 (ViT-H
+    and SigLIP under both layer impls: the prologue at D 1280 with gelu and
+    quick_gelu, D 1152 with gelu_pytorch_tanh; Jina on its own path) against
+    the plain versions in f32 (preprocess "xla", attention "xla"), per-row
+    cosine >= 0.999."""
+    import copy
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.arch import load_arch_model
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+
+    dev = torch.device("cuda")
+    images = _bench_images(8)
+    for name in OTHER_MODELS:
+        model = load_arch_model(name, seed=0, device=dev, dtype=torch.bfloat16)
+        engine = EncodingEngine(model, batch_size=8, device=dev, preprocess_impl="auto")
+        kernel = {}
+        for impl in ("xla",) if name == "Jina-CLIP-v1" else ("xla", "fused"):
+            layers.set_layer_impl(impl)
+            try:
+                kernel[impl] = (engine.encode_images(images).embeddings, engine.encode_texts(CAPTIONS).embeddings)
+            finally:
+                layers.set_layer_impl("auto")
+        model32 = copy.copy(model)
+        model32.model = copy.deepcopy(model.model).float()
+        del model, engine
+        layers.set_attention_impl("xla")
+        try:
+            plain = EncodingEngine(model32, batch_size=8, device=dev, preprocess_impl="xla")
+            img_p, txt_p = plain.encode_images(images).embeddings, plain.encode_texts(CAPTIONS).embeddings
+        finally:
+            layers.set_attention_impl("auto")
+        del model32, plain
+        torch.cuda.empty_cache()
+        for impl, (img_k, txt_k) in kernel.items():
+            cos_img = torch.nn.functional.cosine_similarity(img_k.float(), img_p.float(), dim=-1)
+            cos_txt = torch.nn.functional.cosine_similarity(txt_k.float(), txt_p.float(), dim=-1)
+            print(f"[consistency] {name} --layer-impl {impl} pooled cosine kernel-bf16 vs plain-f32: images "
+                  f"{[round(float(c), 6) for c in cos_img]}; captions {[round(float(c), 6) for c in cos_txt]}")
+            worst = min(float(cos_img.min()), float(cos_txt.min()))
+            require(worst >= COSINE_MIN, f"{name} --layer-impl {impl}: cosine {worst} < {COSINE_MIN}")
+
+
 def main() -> int:
     import torch
 
@@ -921,6 +1054,7 @@ def main() -> int:
     phase_main_path(kernels)
     phase_bench_and_consistency()
     phase_colpali_consistency()
+    phase_other_models_consistency()
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

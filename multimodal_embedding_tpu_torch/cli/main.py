@@ -38,7 +38,7 @@ from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..stats.bootstrap import bootstrap_benchmark
 from ..stats.ci import bootstrap_confidence_interval
 from ..utils.logging import setup_logging
-from ..utils.memory import report_memory
+from ..utils.memory import device_memory_stats, report_memory
 from ..utils.profiling import maybe_trace
 
 logger = logging.getLogger("mme_tpu")
@@ -269,6 +269,8 @@ def main(argv=None) -> int:
         logger.info("=" * 60)
         logger.info(f"EVALUATING: {info.name}")
         logger.info("=" * 60)
+        if device.type == "cuda":  # each model's own peak
+            torch.cuda.reset_peak_memory_stats(device)
         try:
             model = _load(info, args, device)
         except Exception as e:  # per-model skip-and-continue, as the reference
@@ -292,7 +294,13 @@ def main(argv=None) -> int:
             logger.error(f"Evaluation failed for {info.name}: {e}")
             traceback.print_exc()
         finally:
+            # the engine, its preprocess weights and the model's activations
+            # went with run_bootstrap_benchmark; this drops the weights, so
+            # only the shared staged images stay on the device
             del model
+            mem = device_memory_stats(device)
+            logger.info(f"{info.name}: peak device memory {mem['peak_bytes_in_use'] / 1e9:.2f} GB; "
+                        f"{mem['bytes_in_use'] / 1e9:.2f} GB in use after its release")
 
     logger.info("BENCHMARK COMPLETE!")
     logger.info(f"Results saved to {args.output}")

@@ -185,7 +185,9 @@ class LayerNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """q/k/v/o projections around :func:`attention_core`."""
+    """q/k/v/o projections around :func:`attention_core`; with ``kv`` given,
+    cross attention (q from ``x``, k and v from ``kv``), as the siglip MAP
+    head runs it."""
 
     def __init__(self, dim: int, n_heads: int, *, gen, device, dtype):
         super().__init__()
@@ -194,8 +196,10 @@ class MultiHeadAttention(nn.Module):
             Linear(dim, dim, gen=gen, device=device, dtype=dtype) for _ in range(4)
         )
 
-    def forward(self, x, *, causal: bool = False, mask: torch.Tensor | None = None):
-        out = attention_core(self.q(x), self.k(x), self.v(x), self.n_heads, causal=causal, mask=mask)
+    def forward(self, x, *, kv: torch.Tensor | None = None, causal: bool = False,
+                mask: torch.Tensor | None = None):
+        kv = x if kv is None else kv
+        out = attention_core(self.q(x), self.k(kv), self.v(kv), self.n_heads, causal=causal, mask=mask)
         return self.o(out)
 
 

@@ -2,11 +2,11 @@
 modules.
 
 The JAX package keeps params as nested dicts with the layers of a stack
-along a leading axis: a tower's ``encoder/<name>`` and Gemma's
-``layers/<name>`` are ``[L, ...]``. The port's modules use the same names and
-layouts, with the stacks unrolled into ``encoder.layers.<i>`` and
-``layers.<i>``; so the carrier is a rename plus an unstack, and every parity
-test feeds both packages the same weights through it. Integer leaves (ColPali's
+along a leading axis: a tower's ``encoder/<name>``, Gemma's ``layers/<name>``
+and Jina's ``blocks/<name>`` are ``[L, ...]``. The port's modules use the
+same names and layouts, with the stacks unrolled (``_UNROLLED``); so the
+carrier is a rename plus an unstack, and every parity test feeds both
+packages the same weights through it. Integer leaves (ColPali's
 ``image_suffix_ids``) stay integers.
 """
 
@@ -16,6 +16,11 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+# stacked subtree -> the port's name for its layer list: ``encoder/<name>``
+# [L, ...] becomes ``encoder.layers.<i>.<name>``, ``layers/<name>``
+# ``layers.<i>.<name>``, ``blocks/<name>`` ``blocks.<i>.<name>``
+_UNROLLED = {"encoder": "encoder.layers", "layers": "layers", "blocks": "blocks"}
 
 
 def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> dict[str, torch.Tensor]:
@@ -40,13 +45,13 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
 
     for name, arr in leaves(tree, ""):
         parts = name.split(".")
-        stack = next((j for j, key in enumerate(parts) if key in ("encoder", "layers")), None)
+        stack = next((j for j, key in enumerate(parts) if key in _UNROLLED), None)
         if stack is None:
             put(name, arr)
             continue
         # [L, ...]-stacked leaf -> one entry per layer
-        head, rest = ".".join(parts[: stack + 1]), ".".join(parts[stack + 1 :])
-        unrolled = f"{head}.layers" if parts[stack] == "encoder" else head
+        unrolled = ".".join([*parts[:stack], _UNROLLED[parts[stack]]])
+        rest = ".".join(parts[stack + 1 :])
         arr = np.asarray(arr)
         for i in range(arr.shape[0]):
             put(f"{unrolled}.{i}.{rest}", arr[i])

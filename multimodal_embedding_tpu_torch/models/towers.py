@@ -5,10 +5,13 @@ Counterpart of ``multimodal_embedding_tpu/models/towers.py`` for:
   learned positions, pre-layernorm encoder, CLS pooling through a final
   layernorm and a linear projection; a causal text tower pooled at the EOS
   position;
-- the headless ``siglip`` vision tower (``use_head=False``, the vision tower
+- the ``siglip`` style (SigLIP-So400m, SigLIP-Base, and the vision tower
   inside ColPali's PaliGemma): patch bias, no class token, no pre-layernorm,
-  a post-layernorm over all tokens, and the ``[B, N, D]`` sequence returned.
-The siglip MAP head and the siglip text tower are not yet ported.
+  a post-layernorm over all tokens, then the MAP attention-pooling head (a
+  learned probe cross-attending to the sequence, a LayerNorm and an MLP
+  residual) or, headless (``use_head=False``), the ``[B, N, D]`` sequence
+  itself; a bidirectional text tower with a key mask, pooled at the last
+  token through a ``head`` linear.
 
 Patchification is a reshape + matmul, as in the JAX package: a ``conv2d``
 on the card would go through cuDNN in TF32 by default.
@@ -22,7 +25,7 @@ from typing import Literal
 import torch
 from torch import nn
 
-from .layers import Encoder, LayerNorm
+from .layers import MLP, Encoder, LayerNorm, Linear, MultiHeadAttention
 
 Style = Literal["clip", "siglip"]
 
@@ -73,16 +76,9 @@ def _normal(shape, std: float, gen: torch.Generator, device, dtype) -> nn.Parame
     return nn.Parameter(t.to(dtype), requires_grad=False)
 
 
-def _require_clip(style: str) -> None:
-    if style != "clip":
-        raise NotImplementedError(f"the {style!r} tower style is not yet ported")
-
-
-def _require_ported_vision(cfg: VisionConfig) -> None:
-    if cfg.style == "siglip" and cfg.use_head:
-        raise NotImplementedError("the siglip MAP head is not yet ported")
-    if cfg.style not in ("clip", "siglip"):
-        raise NotImplementedError(f"the {cfg.style!r} tower style is not yet ported")
+def _require_style(style: str) -> None:
+    if style not in ("clip", "siglip"):
+        raise ValueError(f"tower style must be 'clip' or 'siglip', not {style!r}")
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
@@ -98,7 +94,7 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
 class VisionTower(nn.Module):
     def __init__(self, cfg: VisionConfig, *, gen: torch.Generator, device, dtype):
         super().__init__()
-        _require_ported_vision(cfg)
+        _require_style(cfg.style)
         self.cfg = cfg
         clip = cfg.style == "clip"
         n_tok = cfg.n_patches + (1 if clip else 0)
@@ -112,18 +108,29 @@ class VisionTower(nn.Module):
         if clip:
             self.cls = _normal((cfg.dim,), 0.02, gen, device, dtype)
             self.pre_ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
+        elif cfg.use_head:
+            # the MAP head, named as the JAX package's ``head`` subtree
+            self.head = nn.Module()
+            self.head.probe = _normal((1, 1, cfg.dim), 0.02, gen, device, dtype)
+            self.head.attn = MultiHeadAttention(cfg.dim, cfg.heads, gen=gen, device=device, dtype=dtype)
+            self.head.ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
+            self.head.mlp = MLP(cfg.dim, cfg.mlp_dim, cfg.act, gen=gen, device=device, dtype=dtype)
+        if clip or (cfg.use_head and cfg.proj_dim is not None):
             self.proj = _normal((cfg.dim, cfg.proj_dim), cfg.dim**-0.5, gen, device, dtype)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        """pixels [B, S, S, 3] (normalized) -> clip: unnormalized embeddings
-        [B, E] f32; headless siglip: the post-layernorm patch sequence
-        [B, N, D] in the tower's dtype."""
+        """pixels [B, S, S, 3] (normalized) -> clip and siglip with its head:
+        unnormalized embeddings [B, E] f32; headless siglip: the
+        post-layernorm patch sequence [B, N, D] in the tower's dtype."""
         w = self.patch["w"]
         dtype = w.dtype
         x = torch.matmul(patchify(pixels.to(dtype), self.cfg.patch_size), w)
         if self.cfg.style == "siglip":
             x = self.encoder((x + self.patch["b"]) + self.pos.to(dtype))
-            return self.post_ln(x)
+            x = self.post_ln(x)
+            if not self.cfg.use_head:
+                return x
+            return self._map_head(x)
         cls = self.cls.to(dtype).expand(x.shape[0], 1, self.cfg.dim)
         x = torch.cat([cls, x], dim=1) + self.pos.to(dtype)
         x = self.pre_ln(x)
@@ -131,25 +138,46 @@ class VisionTower(nn.Module):
         pooled = self.post_ln(x[:, 0])
         return torch.matmul(pooled.float(), self.proj.float())
 
+    def _map_head(self, x: torch.Tensor) -> torch.Tensor:
+        """Attention pooling: the probe cross-attends to the post-layernorm
+        sequence [B, N, D] (through the attention kernel on the card, one
+        query row over N keys), then an MLP residual; the pooled row,
+        projected when the config has a ``proj_dim``, as f32 [B, E]."""
+        head = self.head
+        probe = head.probe.to(x.dtype).expand(x.shape[0], 1, self.cfg.dim)
+        h = head.attn(probe, kv=x)
+        h = h + head.mlp(head.ln(h))
+        pooled = h[:, 0]
+        if self.cfg.proj_dim is not None:
+            return torch.matmul(pooled.float(), self.proj.float())
+        return pooled.float()
+
 
 class TextTower(nn.Module):
     def __init__(self, cfg: TextConfig, *, gen: torch.Generator, device, dtype):
         super().__init__()
-        _require_clip(cfg.style)
+        _require_style(cfg.style)
         self.cfg = cfg
         self.tok = _normal((cfg.vocab_size, cfg.dim), 0.02, gen, device, dtype)
         self.pos = _normal((cfg.max_len, cfg.dim), 0.02, gen, device, dtype)
         self.encoder = Encoder(cfg.layers, cfg.dim, cfg.heads, cfg.mlp_dim, cfg.act, cfg.ln_eps,
                                gen=gen, device=device, dtype=dtype)
         self.final_ln = LayerNorm(cfg.dim, cfg.ln_eps, device=device, dtype=dtype)
-        self.proj = _normal((cfg.dim, cfg.proj_dim), cfg.dim**-0.5, gen, device, dtype)
+        if cfg.style == "clip":
+            self.proj = _normal((cfg.dim, cfg.proj_dim), cfg.dim**-0.5, gen, device, dtype)
+        else:
+            self.head = Linear(cfg.dim, cfg.dim, gen=gen, device=device, dtype=dtype)
 
     def forward(self, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
-        """input_ids [B, T] -> unnormalized embeddings [B, E] f32."""
+        """input_ids [B, T] -> unnormalized embeddings [B, E] f32. clip:
+        causal, pooled at the EOS position through ``proj``; siglip:
+        bidirectional, pooled at the last position through ``head``."""
         t = input_ids.shape[1]
         x = (self.tok[input_ids] + self.pos[:t]).to(self.tok.dtype)
-        x = self.encoder(x, causal=True, mask=attn_mask)
+        x = self.encoder(x, causal=self.cfg.style == "clip", mask=attn_mask)
         x = self.final_ln(x)
+        if self.cfg.style == "siglip":
+            return self.head(x[:, -1]).float()
         # EOS pooling as in HF CLIPTextTransformer: configs with the legacy
         # eos_token_id == 2 pool at argmax(input_ids) (the real EOS, 49407,
         # is the highest vocab id); newer configs pool at the first

@@ -1,10 +1,9 @@
 """Loaded-model bundle, tokenizers and the offline debug models.
 
-Counterpart of ``multimodal_embedding_tpu/models/zoo.py`` for the dense
-(CLIP) family and ColPali. A ``LoadedModel`` carries everything the encoding
-engine needs: the model (a ``DualEncoder`` or a ``ColPali``), the
-preprocessing recipe and a tokenize callable. Loading real HF checkpoints is
-not yet ported.
+Counterpart of ``multimodal_embedding_tpu/models/zoo.py``. A ``LoadedModel``
+carries everything the encoding engine needs: the model (a ``DualEncoder``,
+a ``ColPali`` or a ``JinaClip``), the preprocessing recipe and a tokenize
+callable. Loading real HF checkpoints is not yet ported.
 """
 
 from __future__ import annotations
@@ -21,13 +20,14 @@ from .towers import DualEncoder, DualEncoderConfig, TextConfig, VisionConfig
 
 if TYPE_CHECKING:
     from .colpali import ColPali, ColPaliConfig
+    from .jina import JinaClip, JinaClipConfig
 
 
 @dataclass
 class LoadedModel:
     info: ModelInfo
-    cfg: DualEncoderConfig | ColPaliConfig
-    model: DualEncoder | ColPali
+    cfg: DualEncoderConfig | ColPaliConfig | JinaClipConfig
+    model: DualEncoder | ColPali | JinaClip
     preprocess: PreprocessConfig
     tokenize: Callable[[list[str]], tuple[np.ndarray, np.ndarray]]
     # multi-vector models (ColPali) return per-token embeddings [N, T, D],
@@ -97,13 +97,16 @@ def debug_preprocess(cfg: DualEncoderConfig) -> PreprocessConfig:
 
 
 def load_debug_model(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32) -> LoadedModel:
-    """Random-init small model (64 px images; ColPali 28 px) for offline runs."""
+    """Random-init small model (64 px images; ColPali 28 px, Jina 32 px) for
+    offline runs."""
     if info.type == "colpali":
         from .colpali import load_debug_colpali
 
         return load_debug_colpali(info, seed=seed, device=device, dtype=dtype)
-    if info.type != "dense":
-        raise NotImplementedError(f"{info.name} ({info.type}) is not yet ported")
+    if info.type == "jina":
+        from .jina import load_debug_jina
+
+        return load_debug_jina(info, seed=seed, device=device, dtype=dtype)
     cfg = debug_dual_config(info.type)
     return LoadedModel(
         info=info,

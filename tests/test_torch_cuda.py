@@ -73,6 +73,51 @@ def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, 
     assert float((got.float() - want).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq,tk,h,dh,masked", [
+    (1, 729, 16, 72, False),  # the SigLIP MAP head: one probe row over 729 keys
+    (1, 65, 4, 80, True),
+    (70, 33, 4, 64, True),  # more query rows than keys, past one 64-row query tile
+])
+def test_attention_cross_lengths_match_plain(dev, dtype, tol, tq, tk, h, dh, masked):
+    rng = np.random.default_rng(3)
+    b = 2
+    q = torch.from_numpy(rng.standard_normal((b, tq, h * dh), dtype=np.float32)).to(dev, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h * dh), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+    km = None
+    if masked:
+        km = torch.from_numpy((np.arange(tk)[None, :] < np.array([[tk], [tk // 3]])).astype(np.int32)).to(dev)
+    got = attention_cuda.fused_attention(q, k, v, km, layout="packed", num_heads=h)
+    want = attention_cuda._plain(q.float(), k.float(), v.float(), km, False, dh ** -0.5, "packed", h, h)
+    assert got.shape == q.shape
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+def test_map_head_cross_attention_goes_through_the_kernel(dev):
+    """MultiHeadAttention with kv= at SigLIP-So400m's width: q comes out of a
+    linear on the broadcast probe; the kernel takes its strides, launches
+    once, and agrees with the f32-logit einsum path."""
+    from multimodal_embedding_tpu_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    attn = layers.MultiHeadAttention(1152, 16, gen=gen, device=dev, dtype=torch.bfloat16)
+    probe = torch.randn(1, 1, 1152, generator=gen, device=dev).to(torch.bfloat16).expand(4, 1, 1152)
+    kv = torch.randn(4, 729, 1152, generator=gen, device=dev).to(torch.bfloat16)
+    try:
+        layers.set_attention_impl("pallas")
+        n0 = attention_cuda.launches
+        got = attn(probe, kv=kv)
+        assert attention_cuda.launches == n0 + 1
+        layers.set_attention_impl("xla")
+        want = attn(probe, kv=kv)
+    finally:
+        layers.set_attention_impl("auto")
+    assert got.shape == (4, 1, 1152)
+    d = (got.float() - want.float()).abs()
+    assert float(d.max()) / float(want.float().abs().max()) <= 1e-2
+
+
 def _assert_bf16_attention_close(got, want):
     """chip_smoke.py's bf16 attention limits: 2e-2 absolute, and 1e-2 for
     max|d|/max|plain| and mean|d|/mean|plain| (outputs shrink as key rows

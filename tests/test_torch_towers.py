@@ -154,5 +154,13 @@ def test_activations_and_norms_match_jax(act):
 
 
 def test_siglip_style_is_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        DualEncoder(debug_dual_config("siglip"), device="cpu")
+    """The siglip style builds with its MAP head and text head (their parity
+    with the JAX package: tests/test_torch_siglip.py); a tower style that
+    neither package has is refused."""
+    model = DualEncoder(debug_dual_config("siglip"), device="cpu")
+    assert hasattr(model.vision, "head") and hasattr(model.text, "head")
+    cfg = debug_dual_config("dense")
+    for tower in ("vision", "text"):
+        bad = dataclasses.replace(cfg, **{tower: dataclasses.replace(getattr(cfg, tower), style="eva")})
+        with pytest.raises(ValueError):
+            DualEncoder(bad, device="cpu")
