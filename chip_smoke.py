@@ -40,7 +40,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
      captions, the same way, per-token cosine >= 0.99 over valid tokens and
      exact-zero pad tokens; pooled embeddings of 8 images and 8 captions of
      each of the other five models, the same way (ViT-H and SigLIP under both
-     layer impls, Jina on its own path), per-row cosine >= 0.999.
+     layer impls, Jina on its own path), per-row cosine >= 0.999;
+  6. converted checkpoints at full width: an HF-layout state dict of
+     OpenAI-CLIP-L, SigLIP-400M, ColPali-v1.3 and Jina-CLIP-v1 (the keys and
+     shapes of ``tests/manifests``, seeded random values drawn key by key)
+     through the port's converters and loaders, with the conversion and load
+     seconds and each model's peak device memory; pooled embeddings of 8
+     images and 8 captions through the kernels in bf16 (CLIP-L and SigLIP
+     under both layer impls) against the plain versions in f32 on the f32
+     weights, per-row cosine >= 0.999 (ColPali: per-token cosine >= 0.99 and
+     mean >= 0.999, its MaxSim scores through the kernel); CLIP-L's and
+     SigLIP-400M's trees written with ``save_params`` and reloaded give
+     bit-equal embeddings; the CLI with ``--native-cache-dir`` and neither
+     debug flag scores both models from that cache (``Weights`` = real).
 
 The last three lines are the kernels' JSON line, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
@@ -54,7 +66,11 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -106,6 +122,16 @@ OTHER_CLI_ARGS = [
     "--dataset", "synthetic", "--arch-models", "--models", ",".join(OTHER_MODELS),
     "--sample-size", "128", "--bootstrap-iterations", "100",
 ]
+# phase 6: HF-layout checkpoints at full width, converted by the port
+CONVERTED_MODELS = ("OpenAI-CLIP-L", "SigLIP-400M", "ColPali-v1.3", "Jina-CLIP-v1")
+CACHED_MODELS = ("OpenAI-CLIP-L", "SigLIP-400M")  # the native cache: dense and siglip models
+REAL_CLI_ARGS = [
+    "--dataset", "synthetic", "--models", ",".join(CACHED_MODELS),
+    "--sample-size", "128", "--bootstrap-iterations", "100",
+]
+MANIFESTS = ROOT / "tests" / "manifests"
+DEVICE = "cuda"  # phase 6's device (a CPU rehearsal at small widths sets "cpu")
+COLPALI_SUFFIX_IDS = np.array([2, 10, 11, 12, 13, 14], np.int32)  # a 6-token image prompt suffix
 REFERENCE_COLUMNS = (
     ["Model", "Weights"]
     + [f"{p}_R@{k}_{s}" for p in ("T2I", "I2T", "I2T_Sym") for k in (1, 5, 10)
@@ -1028,6 +1054,237 @@ def phase_other_models_consistency() -> None:
             require(worst >= COSINE_MIN, f"{name} --layer-impl {impl}: cosine {worst} < {COSINE_MIN}")
 
 
+# --- phase 6: converted checkpoints --------------------------------------------------
+
+
+class ManifestWeights(Mapping):
+    """An HF-layout state dict at full published width: the keys and shapes of
+    ``tests/manifests/<name>.json``, each value drawn as it is read from
+    ``numpy.random.default_rng((seed, crc32(key)))`` (nothing is held: the
+    converter reads each key once, and ColPali's f32 tree alone is 12 GB).
+    LayerNorm scales are near 1, Gemma's RMSNorm weights near 0 (its gain is
+    1 + w); every other weight is normal with std 0.02: zeros would hide a
+    layout mistake."""
+
+    def __init__(self, name: str, seed: int = 0):
+        self.shapes = json.loads((MANIFESTS / f"{name}.json").read_text())
+        self.seed = seed
+        self.draw_seconds = 0.0
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng([self.seed, zlib.crc32(key.encode())])
+        x = rng.standard_normal(self.shapes[key], dtype=np.float32)
+        x *= 0.02
+        module = key.split(".")[-2] if "." in key else ""
+        if key.endswith(".weight") and ("norm" in module.lower() or module.endswith("_ln")) \
+                and "language_model." not in key:
+            x += 1.0
+        self.draw_seconds += time.perf_counter() - t0
+        return x
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __len__(self) -> int:
+        return len(self.shapes)
+
+
+def _convert(name: str) -> tuple[dict, object, float, float]:
+    """One model's HF-layout state dict through the port's converter: (tree,
+    config, seconds, of which drawing the values)."""
+    from multimodal_embedding_tpu_torch.models.arch import full_arch_config, full_colpali_config
+    from multimodal_embedding_tpu_torch.models.colpali import colpali_params_from_hf
+    from multimodal_embedding_tpu_torch.models.convert import clip_params_from_hf, siglip_params_from_hf
+    from multimodal_embedding_tpu_torch.models.jina import jina_config_from_sd, jina_params_from_hf
+    from multimodal_embedding_tpu_torch.models.registry import model_info
+
+    kind = model_info(name).type
+    sd = ManifestWeights(name)
+    t0 = time.perf_counter()
+    if kind == "jina":
+        cfg = jina_config_from_sd(sd)
+        tree = jina_params_from_hf(sd, cfg)
+    elif kind == "colpali":
+        cfg = full_colpali_config()
+        tree = colpali_params_from_hf(sd, cfg, COLPALI_SUFFIX_IDS)
+    else:
+        cfg = full_arch_config(name)
+        tree = (siglip_params_from_hf if kind == "siglip" else clip_params_from_hf)(sd, cfg)
+    return tree, cfg, time.perf_counter() - t0, sd.draw_seconds
+
+
+def _loaded(name: str, tree: dict, cfg, dtype):
+    """A ``LoadedModel`` on the card holding the tree's weights in ``dtype``,
+    with the offline word-hash tokenizer (no tokenizer files exist)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.arch import arch_tokenizer
+    from multimodal_embedding_tpu_torch.models.colpali import colpali_from_params
+    from multimodal_embedding_tpu_torch.models.jina import jina_from_params
+    from multimodal_embedding_tpu_torch.models.registry import model_info
+    from multimodal_embedding_tpu_torch.models.zoo import LoadedModel, dual_encoder_from_params
+
+    info = model_info(name)
+    build = {"colpali": colpali_from_params, "jina": jina_from_params}.get(info.type, dual_encoder_from_params)
+    model = build(tree, cfg, device=torch.device(DEVICE), dtype=dtype)
+    return LoadedModel(info=info, cfg=cfg, model=model, preprocess=info.preprocess,
+                       tokenize=arch_tokenizer(info, cfg), multi_vector=info.type == "colpali")
+
+
+def _encode(model, images, impl: str, preprocess_impl: str = "auto"):
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+
+    engine = EncodingEngine(model, batch_size=8, device=DEVICE, preprocess_impl=preprocess_impl)
+    layers.set_layer_impl(impl)
+    try:
+        return engine.encode_images(images).embeddings, engine.encode_texts(CAPTIONS)
+    finally:
+        layers.set_layer_impl("auto")
+
+
+def _check_colpali(img_k, txt_k, img_p, txt_p) -> None:
+    """ColPali's per-token embeddings and MaxSim scores, the kernel path in
+    bf16 against the plain path in f32."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.retrieval.scoring import late_interaction_scores
+
+    valid = txt_k.mask.bool()
+    require(bool((txt_p.mask.bool() == valid).all()), "ColPali text masks differ")
+    for which, emb in (("kernel", txt_k.embeddings), ("plain", txt_p.embeddings)):
+        require(bool((emb[~valid] == 0).all()), f"converted ColPali {which} pad tokens are not exact zeros")
+    cos_img = torch.nn.functional.cosine_similarity(img_k.float(), img_p.float(), dim=-1)
+    cos_txt = torch.nn.functional.cosine_similarity(txt_k.embeddings.float(), txt_p.embeddings.float(), dim=-1)[valid]
+    cos = torch.cat([cos_img.flatten(), cos_txt])
+    scores = late_interaction_scores(txt_k.embeddings, img_k, impl="auto")  # the MaxSim kernel
+    scores_same = late_interaction_scores(txt_k.embeddings, img_k, impl="xla")
+    scores_plain = late_interaction_scores(txt_p.embeddings, img_p, impl="xla")
+    kernel_rel = float((scores - scores_same).abs().max() / scores_same.abs().max())
+    # unit tokens at cosine c differ by at most sqrt(2(1 - c)), and a query
+    # token's max over doc tokens by at most twice that
+    bound = 2 * math.sqrt(2 * (1 - COLPALI_COSINE_MIN)) * valid.sum(dim=1, keepdim=True).float()
+    path_err = (scores - scores_plain).abs()
+    print(f"[converted] ColPali-v1.3 per-token cosine kernel-bf16 vs plain-f32: min {float(cos.min())} mean "
+          f"{float(cos.mean())} over {cos.numel()} tokens ({cos_img.numel()} image, {cos_txt.numel()} text); "
+          f"pad tokens {int((~valid).sum())} exact zeros; MaxSim {tuple(scores.shape)} kernel vs plain on the same "
+          f"embeddings max|d|/max|plain| {kernel_rel}; kernel path vs plain path max|d| {float(path_err.max())} "
+          f"(max|plain| {float(scores_plain.abs().max())}, limit {float(bound.min())} a query)")
+    require(bool(scores.isfinite().all()), "converted ColPali MaxSim scores not finite")
+    require(float(cos.min()) >= COLPALI_COSINE_MIN and float(cos.mean()) >= COSINE_MIN,
+            f"converted ColPali per-token cosine min {float(cos.min())}, mean {float(cos.mean())}")
+    require(kernel_rel <= MAXSIM_REL_TOL_BF16, f"converted ColPali MaxSim kernel rel err {kernel_rel}")
+    require(bool((path_err <= bound).all()), f"converted ColPali MaxSim path error {float(path_err.max())}")
+
+
+def phase_converted(kernels: list[dict]) -> None:
+    """Phase 6 (see the module docstring)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers, zoo
+    from multimodal_embedding_tpu_torch.models.arch import arch_tokenizer, full_arch_config
+    from multimodal_embedding_tpu_torch.models.checkpoint import load_params, save_params
+
+    mem = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60).stdout
+    print("[converted] host memory (free -g): " + " | ".join(" ".join(line.split()) for line in mem.splitlines()))
+    card = card_line()
+    images = _bench_images(8)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+
+    def timed_save(path: Path, tree: dict, cfg) -> float:
+        t0 = time.perf_counter()
+        save_params(path, tree, cfg)
+        return time.perf_counter() - t0
+
+    # each cache file is written in a thread of its own while the next models
+    # convert and run: deflate releases the GIL, and it is most of the time
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as cache_dir, ThreadPoolExecutor(len(CACHED_MODELS)) as saver:
+        direct = {}  # CLIP-L and SigLIP-400M: bf16 kernel embeddings of the directly converted model
+        for name in CONVERTED_MODELS:
+            tree, cfg, convert_s, draw_s = _convert(name)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model = _loaded(name, tree, cfg, torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            impls = ("xla", "fused") if name in CACHED_MODELS else ("xla",)
+            kernel = {impl: _encode(model, images, impl) for impl in impls}
+            peak = torch.cuda.max_memory_allocated()
+            del model
+            torch.cuda.empty_cache()
+            model32 = _loaded(name, tree, cfg, torch.float32)
+            layers.set_attention_impl("xla")  # the kernels' plain functions
+            try:
+                img_p, txt_p = _encode(model32, images, "xla", preprocess_impl="xla")
+            finally:
+                layers.set_attention_impl("auto")
+            del model32
+            torch.cuda.empty_cache()
+            print(f"[converted] {name}: convert {convert_s:.2f} s (drawing the values {draw_s:.2f} s of it), "
+                  f"load to the card in bf16 {load_s:.2f} s, peak device memory {peak / 1e9:.3f} GB "
+                  f"(load and kernel encode); card {card}")
+            if name == "ColPali-v1.3":
+                img_k, txt_k = kernel["xla"]
+                _check_colpali(img_k, txt_k, img_p, txt_p)
+            else:
+                for impl, (img_k, txt_k) in kernel.items():
+                    cos_img = torch.nn.functional.cosine_similarity(img_k.float(), img_p.float(), dim=-1)
+                    cos_txt = torch.nn.functional.cosine_similarity(txt_k.embeddings.float(),
+                                                                    txt_p.embeddings.float(), dim=-1)
+                    print(f"[converted] {name} --layer-impl {impl} pooled cosine kernel-bf16 vs plain-f32: images "
+                          f"{[round(float(c), 6) for c in cos_img]}; captions {[round(float(c), 6) for c in cos_txt]}")
+                    worst = min(float(cos_img.min()), float(cos_txt.min()))
+                    require(worst >= COSINE_MIN, f"converted {name} --layer-impl {impl}: cosine {worst} < {COSINE_MIN}")
+            if name in CACHED_MODELS:
+                saving = saver.submit(timed_save, Path(cache_dir) / f"{name}.npz", tree, cfg)
+                direct[name] = (kernel["xla"][0], kernel["xla"][1].embeddings, saving)
+            del tree, kernel, img_p, txt_p
+        # the native cache: the same f32 trees back from disk, the same kernels
+        for name, (img_d, txt_d, saving) in direct.items():
+            save_s = saving.result()
+            t0 = time.perf_counter()
+            tree, cfg = load_params(Path(cache_dir) / f"{name}.npz")
+            read_s = time.perf_counter() - t0
+            require(cfg == full_arch_config(name), f"{name}: cached config {cfg}")
+            img_c, txt_c = _encode(_loaded(name, tree, cfg, torch.bfloat16), images, "xla")
+            size = (Path(cache_dir) / f"{name}.npz").stat().st_size
+            equal = bool(torch.equal(img_c, img_d)) and bool(torch.equal(txt_c.embeddings, txt_d))
+            print(f"[converted] {name} native cache: save_params {save_s:.2f} s (in its thread, beside the "
+                  f"later models' work), {size / 1e9:.3f} GB on disk, "
+                  f"load_params {read_s:.2f} s; embeddings bit-equal to the directly converted model's: {equal}")
+            require(equal, f"{name}: embeddings from the native cache differ from the directly converted model's")
+            del tree
+            torch.cuda.empty_cache()
+        # the CLI's real-checkpoint path: no tokenizer files exist here, so the
+        # arch word-hash tokenizer stands in for zoo.hf_tokenizer (a tokenizer
+        # only: weights, device and kernels are the CLI's own)
+        hf_tokenizer = zoo.hf_tokenizer
+        zoo.hf_tokenizer = lambda info: arch_tokenizer(info, full_arch_config(info.name))
+        try:
+            runs = _main_path([*REAL_CLI_ARGS, "--native-cache-dir", cache_dir], "real_checkpoints.csv",
+                              lambda m: ("fused_attention", "preprocess"))
+        finally:
+            zoo.hf_tokenizer = hf_tokenizer
+    n = 128
+    want = [((n, n), True), ((n, 5 * n), True)]
+    require([r["model"] for r in runs] == list(CACHED_MODELS), f"real-checkpoint CLI ran {[r['model'] for r in runs]}")
+    for r in runs:
+        require(r["row"]["Weights"] == "real", f"{r['model']}: Weights {r['row']['Weights']}")
+        require(r["scores"] == want, f"{r['model']} score matrices {r['scores']}, want {want}")
+    print("[converted] CLI --native-cache-dir, no debug flag: " + "; ".join(
+        f"{r['model']} Weights={r['row']['Weights']} QPS={float(r['row']['QPS'])} peak_memory_GB="
+        f"{r['peak_bytes'] / 1e9:.3f} attention={r['counts']['fused_attention']} "
+        f"preprocess={r['counts']['preprocess']}" for r in runs))
+    for k in kernels:
+        for r in runs:
+            k["launches_by_path"][f"{r['model']} real-checkpoint CLI"] = r["counts"][k["name"]]
+    # converters, loaders and the cache are numpy and torch alone
+    require("transformers" not in sys.modules, "phase 6 imported transformers")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1055,6 +1312,7 @@ def main() -> int:
     phase_bench_and_consistency()
     phase_colpali_consistency()
     phase_other_models_consistency()
+    phase_converted(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -12,6 +12,12 @@ warmup runs before the timer.
 device the CLI exits nonzero unless ``--device cpu`` was given. Flags of the
 JAX CLI that this port does not carry yet raise "not yet ported".
 
+Without ``--debug-models`` or ``--arch-models`` each model loads its HF
+checkpoint (``models/zoo.py:load_model``) from the local HF cache; with
+``--native-cache-dir`` the dense and siglip models' converted weights are
+kept there and reloaded without transformers. A model whose load fails is
+logged and skipped.
+
     python -m multimodal_embedding_tpu_torch.cli.main --dataset synthetic \\
         --arch-models --models OpenAI-CLIP-L --sample-size 512
 """
@@ -33,7 +39,7 @@ from ..data.captions import caps_per_image
 from ..data.coco import load_benchmark_dataset
 from ..models.encode import DeviceImageCache, EncodingEngine, stage_images
 from ..models.registry import get_models_to_test
-from ..models.zoo import LoadedModel, load_debug_model
+from ..models.zoo import LoadedModel, load_debug_model, load_model
 from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..stats.bootstrap import bootstrap_benchmark
 from ..stats.ci import bootstrap_confidence_interval
@@ -99,7 +105,9 @@ def parse_args(argv=None):
                    help="Encoder layer: auto and xla (plain ops), or fused (the "
                         "residual+LayerNorm+matmul prologue CUDA kernel feeding the "
                         "stacked-QKV attention kernel; their plain versions on the CPU)")
-    p.add_argument("--native-cache-dir", type=str, default=None, help="Not yet ported")
+    p.add_argument("--native-cache-dir", type=str, default=None,
+                   help="Keep the dense and siglip models' converted weights as .npz here "
+                        "and reload them without transformers")
     p.add_argument("--tensor-parallel", type=int, default=1, help="Values above 1: not yet ported")
     p.add_argument("--sequence-parallel", type=int, default=1, help="Values above 1: not yet ported")
     return p.parse_args(argv)
@@ -113,8 +121,6 @@ def _reject_unported(args) -> None:
         "--transport host": args.transport == "host",
         "--streaming-encode": args.streaming_encode,
         "--score-cache-dir": args.score_cache_dir is not None,
-        "--native-cache-dir": args.native_cache_dir is not None,
-        "real checkpoints (pass --debug-models or --arch-models)": not (args.debug_models or args.arch_models),
     }
     for flag, used in unported.items():
         if used:
@@ -232,10 +238,12 @@ def run_bootstrap_benchmark(
 def _load(info, args, device) -> LoadedModel:
     if args.debug_models:
         return load_debug_model(info, seed=args.seed, device=device)
-    from ..models.arch import load_arch_model
-
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
-    return load_arch_model(info.name, seed=args.seed, device=device, dtype=dtype)
+    if args.arch_models:
+        from ..models.arch import load_arch_model
+
+        return load_arch_model(info.name, seed=args.seed, device=device, dtype=dtype)
+    return load_model(info, native_cache_dir=args.native_cache_dir, device=device, dtype=dtype)
 
 
 def main(argv=None) -> int:

@@ -15,8 +15,9 @@ Counterpart of ``multimodal_embedding_tpu/models/colpali.py``:
   ColPaliForRetrieval's ``emb * mask``, COMPAT #8).
 
 Scoring runs MaxSim without masks: a zero pad vector adds a 0 floor to the
-doc-token max and exactly 0 to the query sum. HF checkpoint conversion and
-``load_colpali`` are not yet ported.
+doc-token max and exactly 0 to the query sum. ``colpali_params_from_hf``
+converts an HF ``ColPaliForRetrieval`` state dict into the JAX package's
+param tree (numpy), which ``load_colpali`` carries into the module.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ import torch
 from torch import nn
 
 from ..ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, PreprocessConfig
+from .convert import _encoder_from_hf, _lin, _ln, _patch_w, _t, stack_layers
 from .gemma import Gemma, GemmaConfig
 from .layers import linear
+from .params import load_tree
 from .registry import ModelInfo
-from .towers import VisionConfig, VisionTower
+from .towers import VisionConfig, VisionTower, seeded_generator
 
 
 @dataclass(frozen=True)
@@ -55,7 +58,7 @@ class ColPali(nn.Module):
     def __init__(self, cfg: ColPaliConfig, image_suffix_ids, *, seed: int = 0, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = seeded_generator(seed, device)
 
         def normal(shape):
             t = torch.randn(shape, generator=gen, device=device) * 0.02
@@ -98,6 +101,95 @@ class ColPali(nn.Module):
     # the encoding engine's interface (models/encode.py)
     encode_image = image_fwd
     encode_text = text_fwd
+
+
+# --- HF conversion -------------------------------------------------------------
+
+
+def colpali_config_from_hf(hf_cfg) -> ColPaliConfig:
+    vlm = hf_cfg.vlm_config
+    v, t = vlm.vision_config, vlm.text_config
+    return ColPaliConfig(
+        vision=VisionConfig(
+            image_size=v.image_size, patch_size=v.patch_size, dim=v.hidden_size,
+            layers=v.num_hidden_layers, heads=v.num_attention_heads, mlp_dim=v.intermediate_size,
+            proj_dim=None, style="siglip", act=v.hidden_act, ln_eps=v.layer_norm_eps, use_head=False,
+        ),
+        gemma=GemmaConfig(
+            vocab_size=t.vocab_size, dim=t.hidden_size, layers=t.num_hidden_layers,
+            heads=t.num_attention_heads, kv_heads=t.num_key_value_heads, head_dim=t.head_dim,
+            mlp_dim=t.intermediate_size, rope_theta=t.rope_theta, rms_eps=t.rms_norm_eps,
+        ),
+        embedding_dim=hf_cfg.embedding_dim,
+        image_token_id=vlm.image_token_index,
+    )
+
+
+def _gemma_from_hf(sd, prefix: str, n_layers: int) -> dict:
+    layers = []
+    for i in range(n_layers):
+        lp = f"{prefix}.layers.{i}"
+        layers.append({
+            "ln1": _t(sd[f"{lp}.input_layernorm.weight"]),
+            "attn": {n: _t(sd[f"{lp}.self_attn.{n}_proj.weight"]).T for n in ("q", "k", "v", "o")},
+            "ln2": _t(sd[f"{lp}.post_attention_layernorm.weight"]),
+            "mlp": {n: _t(sd[f"{lp}.mlp.{n}_proj.weight"]).T for n in ("gate", "up", "down")},
+        })
+    return {
+        "embed": _t(sd[f"{prefix}.embed_tokens.weight"]),
+        "layers": stack_layers(layers),
+        "final_norm": _t(sd[f"{prefix}.norm.weight"]),
+    }
+
+
+def colpali_params_from_hf(sd, cfg: ColPaliConfig, image_suffix_ids: np.ndarray) -> dict:
+    """HF ``ColPaliForRetrieval`` state dict -> the JAX package's param tree
+    (numpy); ``image_suffix_ids`` stays an int32 leaf."""
+    vt = "vlm.model.vision_tower.vision_model"
+    vision = {
+        "patch": {
+            "w": _patch_w(_t(sd[f"{vt}.embeddings.patch_embedding.weight"])),
+            "b": _t(sd[f"{vt}.embeddings.patch_embedding.bias"]),
+        },
+        "pos": _t(sd[f"{vt}.embeddings.position_embedding.weight"]),
+        "encoder": _encoder_from_hf(sd, f"{vt}.encoder", cfg.vision.layers),
+        "post_ln": _ln(sd, f"{vt}.post_layernorm"),
+    }
+    return {
+        "vision": vision,
+        "mm_proj": _lin(sd, "vlm.model.multi_modal_projector.linear"),
+        "gemma": _gemma_from_hf(sd, "vlm.model.language_model", cfg.gemma.layers),
+        "emb_proj": _lin(sd, "embedding_proj_layer"),
+        "image_suffix_ids": np.asarray(image_suffix_ids, np.int32),
+    }
+
+
+def colpali_from_params(tree, cfg: ColPaliConfig, *, device, dtype=torch.float32) -> ColPali:
+    """A ``ColPali`` holding a converted param tree's weights in ``dtype``."""
+    model = ColPali(cfg, tree["image_suffix_ids"], device=device, dtype=dtype)
+    return load_tree(model, tree, dtype, device=device)
+
+
+def load_colpali(info: ModelInfo, *, device, dtype=torch.bfloat16, checkpoint_dir: str | None = None):
+    """Load an HF ColPali checkpoint (the HF cache or ``checkpoint_dir``)."""
+    from transformers import AutoProcessor, ColPaliForRetrieval
+
+    from .colpali_processing import colpali_query_tokenizer, image_prompt_suffix_ids, prompts_from_processor
+    from .zoo import LoadedModel
+
+    src = checkpoint_dir or info.hf_id
+    hf = ColPaliForRetrieval.from_pretrained(src, torch_dtype=torch.float32)
+    cfg = colpali_config_from_hf(hf.config)
+    # only the raw tokenizer and the prompt constants come from the HF
+    # processor; the query and image wrapping is colpali_processing.py's
+    proc = AutoProcessor.from_pretrained(src, trust_remote_code=info.trust_remote_code)
+    prompts = prompts_from_processor(proc)
+    tree = colpali_params_from_hf(hf.state_dict(), cfg, image_prompt_suffix_ids(proc.tokenizer, prompts))
+    del hf
+    return LoadedModel(
+        info=info, cfg=cfg, model=colpali_from_params(tree, cfg, device=device, dtype=dtype),
+        preprocess=info.preprocess, tokenize=colpali_query_tokenizer(proc.tokenizer, prompts), multi_vector=True,
+    )
 
 
 def debug_colpali_config(image_size: int = 28) -> ColPaliConfig:

@@ -1,5 +1,5 @@
 """Jina-CLIP-v1: an EVA02-B/16 vision tower and a JinaBERT text tower, as
-``nn.Module``s (forward and random init).
+``nn.Module``s (forward, random init and HF conversion).
 
 Counterpart of ``multimodal_embedding_tpu/models/jina.py``:
 - Vision (EVA02-B/16): class token, learned positions; each block a
@@ -14,7 +14,9 @@ Counterpart of ``multimodal_embedding_tpu/models/jina.py``:
 Attention in both towers is the JAX package's inline einsum (f32 logits and
 softmax, rope or ALiBi): it has no kernel route there, so here it is plain
 PyTorch on every device. Parameter names follow the JAX param tree, with the
-``blocks`` stacks unrolled (``models/params.py``).
+``blocks`` stacks unrolled (``models/params.py``). ``jina_params_from_hf``
+converts the checkpoint's state dict into that tree (numpy), strictly: a
+missing or an unknown key raises.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from .convert import _patch_w, _t, stack_layers
 from .layers import LayerNorm, Linear
-from .towers import _normal, patchify
+from .params import load_tree
+from .towers import _normal, patchify, seeded_generator
 
 # --- configs -------------------------------------------------------------------
 
@@ -274,6 +278,159 @@ class JinaBertTower(nn.Module):
         return pooled
 
 
+# --- HF conversion -------------------------------------------------------------
+#
+# jina-clip-v1 state-dict schema (the JAX package's, models/jina.py there).
+# Keys, per tower:
+#
+#   vision_model.patch_embed.proj.{weight,bias}     conv [D,3,P,P]
+#   vision_model.cls_token                          [1,1,D]
+#   vision_model.pos_embed                          [1,N+1,D]
+#   vision_model.blocks.{i}.norm1.{weight,bias}
+#   vision_model.blocks.{i}.attn.{q,k,v}_proj.weight   (k has no bias)
+#   vision_model.blocks.{i}.attn.{q,v}_bias
+#   vision_model.blocks.{i}.attn.inner_attn_ln.{weight,bias}   sub-LN
+#   vision_model.blocks.{i}.attn.proj.{weight,bias}
+#   vision_model.blocks.{i}.norm2.{weight,bias}
+#   vision_model.blocks.{i}.mlp.{w1,w2}.{weight,bias}  SwiGLU gate/up
+#   vision_model.blocks.{i}.mlp.ffn_ln.{weight,bias}
+#   vision_model.blocks.{i}.mlp.w3.{weight,bias}
+#   vision_model.norm.{weight,bias}
+#   vision_model.head.{weight,bias}                  (the bias optional)
+#
+#   text_model.transformer.embeddings.word_embeddings.weight
+#   text_model.transformer.embeddings.token_type_embeddings.weight (folded:
+#       token_type_ids are always 0 here, so row 0 is added to every word
+#       embedding)
+#   text_model.transformer.embeddings.LayerNorm.{weight,bias}
+#   text_model.transformer.encoder.layer.{i}.attention.self.{query,key,value}.{weight,bias}
+#   text_model.transformer.encoder.layer.{i}.attention.output.dense.{weight,bias}
+#   text_model.transformer.encoder.layer.{i}.attention.output.LayerNorm.{weight,bias}
+#   text_model.transformer.encoder.layer.{i}.mlp.gated_layers.weight   (no bias)
+#   text_model.transformer.encoder.layer.{i}.mlp.wo.{weight,bias}
+#   text_model.transformer.encoder.layer.{i}.mlp.layernorm.{weight,bias}
+#
+# Every key read is checked off; a missing key or one left over raises with
+# its name, so a checkpoint whose layout drifted fails at load time.
+
+_IGNORED_KEY_MARKERS = (
+    "rope.",  # rotary cos/sin buffers: recomputed, not weights
+    "freqs_",
+    "pooler.",  # the BERT pooler head: unused (mean pooling)
+    "position_ids",  # a registered buffer in some BERT variants
+    "logit_scale",  # the contrastive temperature: unused at inference
+)
+
+
+class _StrictSD:
+    """A state-dict view that records what is read and fails loudly on drift."""
+
+    def __init__(self, sd):
+        self.sd = dict(sd.items())
+        self.used: set[str] = set()
+
+    def __getitem__(self, k: str):
+        if k not in self.sd:
+            raise KeyError(f"jina-clip conversion: expected checkpoint key {k!r} is missing "
+                           "— the checkpoint layout drifted from the schema in models/jina.py")
+        self.used.add(k)
+        return self.sd[k]
+
+    def __contains__(self, k: str) -> bool:
+        return k in self.sd
+
+    def finish(self) -> None:
+        leftover = [k for k in self.sd
+                    if k not in self.used and not any(m in k for m in _IGNORED_KEY_MARKERS)]
+        if leftover:
+            raise ValueError(f"jina-clip conversion: unconverted checkpoint keys (layout drift): {sorted(leftover)}")
+
+
+def jina_config_from_sd(sd) -> JinaClipConfig:
+    """The towers' shapes, read from the state dict itself (layer counts, widths)."""
+    import re
+
+    def n_layers(pattern: str) -> int:
+        return 1 + max(int(m.group(1)) for k in sd if (m := re.match(pattern, k)))
+
+    dim, _, patch, _ = _t(sd["vision_model.patch_embed.proj.weight"]).shape  # [D, 3, P, P]
+    grid = math.isqrt(_t(sd["vision_model.pos_embed"]).shape[1] - 1)
+    tok = _t(sd["text_model.transformer.embeddings.word_embeddings.weight"])
+    gated = _t(sd["text_model.transformer.encoder.layer.0.mlp.gated_layers.weight"])
+    return JinaClipConfig(
+        vision=Eva02Config(
+            image_size=grid * patch, patch_size=patch, dim=dim,
+            layers=n_layers(r"vision_model\.blocks\.(\d+)\."),
+            heads=dim // 64,  # EVA-02 uses 64-d heads throughout
+            mlp_dim=_t(sd["vision_model.blocks.0.mlp.w1.weight"]).shape[0],
+            proj_dim=_t(sd["vision_model.head.weight"]).shape[0],
+        ),
+        text=JinaBertConfig(
+            vocab_size=tok.shape[0], dim=tok.shape[1],
+            layers=n_layers(r"text_model\.transformer\.encoder\.layer\.(\d+)\."),
+            heads=tok.shape[1] // 64, mlp_dim=gated.shape[0] // 2,
+        ),
+    )
+
+
+def jina_params_from_hf(sd, cfg: JinaClipConfig) -> dict:
+    """A jina-clip-v1 state dict -> the JAX package's param tree (numpy).
+    Strict: see the schema above."""
+    s = _StrictSD(sd)
+
+    def lin(prefix: str) -> dict:
+        return {"w": _t(s[f"{prefix}.weight"]).T, "b": _t(s[f"{prefix}.bias"])}
+
+    def ln(prefix: str) -> dict:
+        return {"scale": _t(s[f"{prefix}.weight"]), "bias": _t(s[f"{prefix}.bias"])}
+
+    blocks = []
+    for i in range(cfg.vision.layers):
+        bp = f"vision_model.blocks.{i}"
+        blocks.append({
+            "ln1": ln(f"{bp}.norm1"),
+            "attn": {
+                "q": {"w": _t(s[f"{bp}.attn.q_proj.weight"]).T, "b": _t(s[f"{bp}.attn.q_bias"])},
+                "k": {"w": _t(s[f"{bp}.attn.k_proj.weight"]).T},
+                "v": {"w": _t(s[f"{bp}.attn.v_proj.weight"]).T, "b": _t(s[f"{bp}.attn.v_bias"])},
+                "inner_ln": ln(f"{bp}.attn.inner_attn_ln"),
+                "o": lin(f"{bp}.attn.proj"),
+            },
+            "ln2": ln(f"{bp}.norm2"),
+            "mlp": {"w1": lin(f"{bp}.mlp.w1"), "w2": lin(f"{bp}.mlp.w2"),
+                    "ffn_ln": ln(f"{bp}.mlp.ffn_ln"), "w3": lin(f"{bp}.mlp.w3")},
+        })
+    vision = {
+        "patch": {"w": _patch_w(_t(s["vision_model.patch_embed.proj.weight"])),
+                  "b": _t(s["vision_model.patch_embed.proj.bias"])},
+        "cls": _t(s["vision_model.cls_token"]).reshape(-1),
+        "pos": _t(s["vision_model.pos_embed"])[0],
+        "blocks": stack_layers(blocks),
+        "final_ln": ln("vision_model.norm"),
+        "proj": _t(s["vision_model.head.weight"]).T,
+    }
+    if "vision_model.head.bias" in s:
+        vision["proj_b"] = _t(s["vision_model.head.bias"])
+
+    tp = "text_model.transformer"
+    tok = _t(s[f"{tp}.embeddings.word_embeddings.weight"])
+    if f"{tp}.embeddings.token_type_embeddings.weight" in s:
+        tok = tok + _t(s[f"{tp}.embeddings.token_type_embeddings.weight"])[0]
+    tblocks = []
+    for i in range(cfg.text.layers):
+        lp = f"{tp}.encoder.layer.{i}"
+        tblocks.append({
+            "attn": {"q": lin(f"{lp}.attention.self.query"), "k": lin(f"{lp}.attention.self.key"),
+                     "v": lin(f"{lp}.attention.self.value"), "o": lin(f"{lp}.attention.output.dense")},
+            "attn_ln": ln(f"{lp}.attention.output.LayerNorm"),
+            "mlp": {"gated": {"w": _t(s[f"{lp}.mlp.gated_layers.weight"]).T}, "out": lin(f"{lp}.mlp.wo")},
+            "mlp_ln": ln(f"{lp}.mlp.layernorm"),
+        })
+    text = {"tok": tok, "emb_ln": ln(f"{tp}.embeddings.LayerNorm"), "blocks": stack_layers(tblocks)}
+    s.finish()
+    return {"vision": vision, "text": text}
+
+
 # --- assembly ---------------------------------------------------------------------
 
 
@@ -283,7 +440,7 @@ class JinaClip(nn.Module):
     def __init__(self, cfg: JinaClipConfig, *, seed: int = 0, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = seeded_generator(seed, device)
         self.vision = Eva02Tower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.text = JinaBertTower(cfg.text, gen=gen, device=device, dtype=dtype)
 
@@ -292,6 +449,41 @@ class JinaClip(nn.Module):
 
     def encode_text(self, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         return self.text(input_ids, attn_mask)
+
+
+def jina_from_params(tree, cfg: JinaClipConfig, *, device, dtype=torch.float32) -> JinaClip:
+    """A ``JinaClip`` holding a converted param tree's weights in ``dtype``
+    (with the EVA02 head's bias where the tree carries one)."""
+    model = JinaClip(cfg, device=device, dtype=dtype)
+    if "proj_b" in tree["vision"]:
+        model.vision.proj_b = nn.Parameter(torch.zeros(cfg.vision.proj_dim, device=device, dtype=dtype),
+                                           requires_grad=False)
+    return load_tree(model, tree, dtype, device=device)
+
+
+def load_jina(info, *, device, dtype=torch.bfloat16, checkpoint_dir: str | None = None):
+    """Load jina-clip-v1 (the reference loads it with trust_remote_code,
+    main.py:133, :818-820) from the HF cache or ``checkpoint_dir``. The
+    strict converter raises with the full list of unmatched keys on any
+    layout drift."""
+    from transformers import AutoModel, AutoTokenizer
+
+    from .zoo import LoadedModel
+
+    src = checkpoint_dir or info.hf_id
+    hf = AutoModel.from_pretrained(src, torch_dtype=torch.float32, trust_remote_code=True)
+    sd = hf.state_dict()
+    cfg = jina_config_from_sd(sd)
+    tree = jina_params_from_hf(sd, cfg)
+    del hf, sd
+    tok = AutoTokenizer.from_pretrained(src, trust_remote_code=True)
+
+    def tokenize(texts: list[str]):
+        out = tok(texts, padding=True, truncation=True, max_length=info.text_max_len, return_tensors="np")
+        return out["input_ids"].astype(np.int32), out["attention_mask"].astype(np.int32)
+
+    return LoadedModel(info=info, cfg=cfg, model=jina_from_params(tree, cfg, device=device, dtype=dtype),
+                       preprocess=info.preprocess, tokenize=tokenize)
 
 
 def debug_jina_config() -> JinaClipConfig:

@@ -16,6 +16,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 # stacked subtree -> the port's name for its layer list: ``encoder/<name>``
 # [L, ...] becomes ``encoder.layers.<i>.<name>``, ``layers/<name>``
@@ -56,3 +57,12 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
         for i in range(arr.shape[0]):
             put(f"{unrolled}.{i}.{rest}", arr[i])
     return state
+
+
+def load_tree(module: nn.Module, tree: Mapping[str, Any], dtype=torch.float32, *, device) -> nn.Module:
+    """Load a JAX param tree into ``module`` (built on ``device`` in ``dtype``),
+    every name matched strictly. The tree's tensors take the place of the
+    module's own (``assign``), so no second copy of the weights stays on the
+    device. Returns ``module``."""
+    module.load_state_dict(params_from_jax(tree, dtype, device=device), strict=True, assign=True)
+    return module

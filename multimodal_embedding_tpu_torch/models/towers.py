@@ -76,6 +76,15 @@ def _normal(shape, std: float, gen: torch.Generator, device, dtype) -> nn.Parame
     return nn.Parameter(t.to(dtype), requires_grad=False)
 
 
+def seeded_generator(seed: int, device) -> torch.Generator | None:
+    """The generator a model's random init draws from; none on the ``meta``
+    device, where a module holds shapes only (its weights come from
+    ``load_state_dict``)."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _require_style(style: str) -> None:
     if style not in ("clip", "siglip"):
         raise ValueError(f"tower style must be 'clip' or 'siglip', not {style!r}")
@@ -196,7 +205,7 @@ class DualEncoder(nn.Module):
     def __init__(self, cfg: DualEncoderConfig, *, seed: int = 0, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg
-        gen = torch.Generator(device=device).manual_seed(seed)
+        gen = seeded_generator(seed, device)
         self.vision = VisionTower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.text = TextTower(cfg.text, gen=gen, device=device, dtype=dtype)
 

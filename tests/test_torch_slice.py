@@ -11,7 +11,7 @@ differently in the two packages).
 
 Also here: the port imports nothing of JAX or the JAX package, its copies of
 the JAX-free host modules behave the same, and its CLI refuses to run on the
-CPU unless asked to.
+CPU unless asked to and refuses the flags it does not carry yet.
 """
 
 import ast
@@ -126,16 +126,16 @@ def test_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [
     ["--attention-impl", "flash"], ["--tensor-parallel", "2"],
-    ["--sequence-parallel", "2"], ["--transport", "host"], ["--streaming-encode"], [],
+    ["--sequence-parallel", "2"], ["--transport", "host"], ["--streaming-encode"],
+    ["--score-cache-dir", "scores"],
 ])
 def test_cli_rejects_unported_flags(tmp_path, flags):
-    extra = [] if not flags else ["--debug-models"]
     with pytest.raises(NotImplementedError):
         tcli.main(["--device", "cpu", "--dataset", "synthetic", "--sample-size", "4",
-                   "--output", str(tmp_path / "x.csv"), *extra, *flags])
+                   "--output", str(tmp_path / "x.csv"), "--debug-models", *flags])
 
 
-@pytest.mark.parametrize("flags", [["--layer-impl", "fused"], ["--layer-impl", "xla"]])
+@pytest.mark.parametrize("flags", [["--layer-impl", "fused"], ["--layer-impl", "xla"], ["--native-cache-dir", "cache"]])
 def test_cli_accepts_ported_flags(flags):
     tcli._reject_unported(tcli.parse_args(["--device", "cpu", "--debug-models", *flags]))
 
