@@ -43,7 +43,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
      layer impls, Jina on its own path), per-row cosine >= 0.999;
   6. converted checkpoints at full width: an HF-layout state dict of
      OpenAI-CLIP-L, SigLIP-400M, ColPali-v1.3 and Jina-CLIP-v1 (the keys and
-     shapes of ``tests/manifests``, seeded random values drawn key by key)
+     shapes of ``tests/manifests``, seeded values made key by key)
      through the port's converters and loaders, with the conversion and load
      seconds and each model's peak device memory; pooled embeddings of 8
      images and 8 captions through the kernels in bf16 (CLIP-L and SigLIP
@@ -70,7 +70,6 @@ import tempfile
 import time
 import zlib
 from collections.abc import Mapping
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -130,7 +129,6 @@ REAL_CLI_ARGS = [
     "--sample-size", "128", "--bootstrap-iterations", "100",
 ]
 MANIFESTS = ROOT / "tests" / "manifests"
-DEVICE = "cuda"  # phase 6's device (a CPU rehearsal at small widths sets "cpu")
 COLPALI_SUFFIX_IDS = np.array([2, 10, 11, 12, 13, 14], np.int32)  # a 6-token image prompt suffix
 REFERENCE_COLUMNS = (
     ["Model", "Weights"]
@@ -1059,12 +1057,19 @@ def phase_other_models_consistency() -> None:
 
 class ManifestWeights(Mapping):
     """An HF-layout state dict at full published width: the keys and shapes of
-    ``tests/manifests/<name>.json``, each value drawn as it is read from
-    ``numpy.random.default_rng((seed, crc32(key)))`` (nothing is held: the
-    converter reads each key once, and ColPali's f32 tree alone is 12 GB).
-    LayerNorm scales are near 1, Gemma's RMSNorm weights near 0 (its gain is
-    1 + w); every other weight is normal with std 0.02: zeros would hide a
-    layout mistake."""
+    ``tests/manifests/<name>.json``, each value made as it is read (nothing is
+    held: the converter reads each key once, and ColPali's f32 tree alone is
+    12 GB). A key of shape [R, ...] with C values a row (the flat index over
+    its other axes) is a random Toeplitz matrix: R + C - 1 normals drawn from
+    ``numpy.random.default_rng((seed, crc32(key)))``, the value at (i, j) the
+    draw ``j - i + R - 1``. So a key takes R + C draws, not R * C, and each
+    row, and each row of its transpose, is the row before moved one place
+    along: deflate finds it inside its 32 KB window wherever rows hold at
+    most 8125 values, so ``save_params`` of a converted CLIP-L or SigLIP tree
+    compresses fast where random values take minutes. A transposed or
+    misplaced weight still differs from the right one. LayerNorm scales are
+    near 1, Gemma's RMSNorm weights near 0 (its gain is 1 + w); every other
+    weight has std 0.02: zeros would hide a layout mistake."""
 
     def __init__(self, name: str, seed: int = 0):
         self.shapes = json.loads((MANIFESTS / f"{name}.json").read_text())
@@ -1073,9 +1078,13 @@ class ManifestWeights(Mapping):
 
     def __getitem__(self, key: str) -> np.ndarray:
         t0 = time.perf_counter()
-        rng = np.random.default_rng([self.seed, zlib.crc32(key.encode())])
-        x = rng.standard_normal(self.shapes[key], dtype=np.float32)
-        x *= 0.02
+        shape = self.shapes[key]
+        rows, cols = (shape[0], math.prod(shape[1:])) if shape else (1, 1)
+        diagonals = np.random.default_rng([self.seed, zlib.crc32(key.encode())]).standard_normal(
+            rows + cols - 1, dtype=np.float32)
+        diagonals *= 0.02
+        windows = np.lib.stride_tricks.sliding_window_view(diagonals, cols)
+        x = windows[::-1].copy().reshape(shape)  # row i: diagonals[R - 1 - i :][:C]
         module = key.split(".")[-2] if "." in key else ""
         if key.endswith(".weight") and ("norm" in module.lower() or module.endswith("_ln")) \
                 and "language_model." not in key:
@@ -1127,7 +1136,7 @@ def _loaded(name: str, tree: dict, cfg, dtype):
 
     info = model_info(name)
     build = {"colpali": colpali_from_params, "jina": jina_from_params}.get(info.type, dual_encoder_from_params)
-    model = build(tree, cfg, device=torch.device(DEVICE), dtype=dtype)
+    model = build(tree, cfg, device=torch.device("cuda"), dtype=dtype)
     return LoadedModel(info=info, cfg=cfg, model=model, preprocess=info.preprocess,
                        tokenize=arch_tokenizer(info, cfg), multi_vector=info.type == "colpali")
 
@@ -1136,7 +1145,7 @@ def _encode(model, images, impl: str, preprocess_impl: str = "auto"):
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
-    engine = EncodingEngine(model, batch_size=8, device=DEVICE, preprocess_impl=preprocess_impl)
+    engine = EncodingEngine(model, batch_size=8, device="cuda", preprocess_impl=preprocess_impl)
     layers.set_layer_impl(impl)
     try:
         return engine.encode_images(images).embeddings, engine.encode_texts(CAPTIONS)
@@ -1192,14 +1201,7 @@ def phase_converted(kernels: list[dict]) -> None:
     images = _bench_images(8)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
 
-    def timed_save(path: Path, tree: dict, cfg) -> float:
-        t0 = time.perf_counter()
-        save_params(path, tree, cfg)
-        return time.perf_counter() - t0
-
-    # each cache file is written in a thread of its own while the next models
-    # convert and run: deflate releases the GIL, and it is most of the time
-    with tempfile.TemporaryDirectory(dir=OUT_DIR) as cache_dir, ThreadPoolExecutor(len(CACHED_MODELS)) as saver:
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as cache_dir:
         direct = {}  # CLIP-L and SigLIP-400M: bf16 kernel embeddings of the directly converted model
         for name in CONVERTED_MODELS:
             tree, cfg, convert_s, draw_s = _convert(name)
@@ -1238,12 +1240,12 @@ def phase_converted(kernels: list[dict]) -> None:
                     worst = min(float(cos_img.min()), float(cos_txt.min()))
                     require(worst >= COSINE_MIN, f"converted {name} --layer-impl {impl}: cosine {worst} < {COSINE_MIN}")
             if name in CACHED_MODELS:
-                saving = saver.submit(timed_save, Path(cache_dir) / f"{name}.npz", tree, cfg)
-                direct[name] = (kernel["xla"][0], kernel["xla"][1].embeddings, saving)
+                t0 = time.perf_counter()
+                save_params(Path(cache_dir) / f"{name}.npz", tree, cfg)
+                direct[name] = (kernel["xla"][0], kernel["xla"][1].embeddings, time.perf_counter() - t0)
             del tree, kernel, img_p, txt_p
         # the native cache: the same f32 trees back from disk, the same kernels
-        for name, (img_d, txt_d, saving) in direct.items():
-            save_s = saving.result()
+        for name, (img_d, txt_d, save_s) in direct.items():
             t0 = time.perf_counter()
             tree, cfg = load_params(Path(cache_dir) / f"{name}.npz")
             read_s = time.perf_counter() - t0
@@ -1251,8 +1253,7 @@ def phase_converted(kernels: list[dict]) -> None:
             img_c, txt_c = _encode(_loaded(name, tree, cfg, torch.bfloat16), images, "xla")
             size = (Path(cache_dir) / f"{name}.npz").stat().st_size
             equal = bool(torch.equal(img_c, img_d)) and bool(torch.equal(txt_c.embeddings, txt_d))
-            print(f"[converted] {name} native cache: save_params {save_s:.2f} s (in its thread, beside the "
-                  f"later models' work), {size / 1e9:.3f} GB on disk, "
+            print(f"[converted] {name} native cache: save_params {save_s:.2f} s, {size / 1e9:.3f} GB on disk, "
                   f"load_params {read_s:.2f} s; embeddings bit-equal to the directly converted model's: {equal}")
             require(equal, f"{name}: embeddings from the native cache differ from the directly converted model's")
             del tree

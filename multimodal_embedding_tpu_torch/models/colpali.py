@@ -165,8 +165,9 @@ def colpali_params_from_hf(sd, cfg: ColPaliConfig, image_suffix_ids: np.ndarray)
 
 
 def colpali_from_params(tree, cfg: ColPaliConfig, *, device, dtype=torch.float32) -> ColPali:
-    """A ``ColPali`` holding a converted param tree's weights in ``dtype``."""
-    model = ColPali(cfg, tree["image_suffix_ids"], device=device, dtype=dtype)
+    """A ``ColPali`` holding a converted param tree's weights in ``dtype``
+    (built on ``meta``: the tree's tensors are the only copy on ``device``)."""
+    model = ColPali(cfg, tree["image_suffix_ids"], device="meta", dtype=dtype)
     return load_tree(model, tree, dtype, device=device)
 
 

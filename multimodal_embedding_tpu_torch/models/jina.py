@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .convert import _patch_w, _t, stack_layers
+from .convert import _lin, _ln, _patch_w, _t, stack_layers
 from .layers import LayerNorm, Linear
 from .params import load_tree
 from .towers import _normal, patchify, seeded_generator
@@ -378,27 +378,21 @@ def jina_params_from_hf(sd, cfg: JinaClipConfig) -> dict:
     Strict: see the schema above."""
     s = _StrictSD(sd)
 
-    def lin(prefix: str) -> dict:
-        return {"w": _t(s[f"{prefix}.weight"]).T, "b": _t(s[f"{prefix}.bias"])}
-
-    def ln(prefix: str) -> dict:
-        return {"scale": _t(s[f"{prefix}.weight"]), "bias": _t(s[f"{prefix}.bias"])}
-
     blocks = []
     for i in range(cfg.vision.layers):
         bp = f"vision_model.blocks.{i}"
         blocks.append({
-            "ln1": ln(f"{bp}.norm1"),
+            "ln1": _ln(s, f"{bp}.norm1"),
             "attn": {
                 "q": {"w": _t(s[f"{bp}.attn.q_proj.weight"]).T, "b": _t(s[f"{bp}.attn.q_bias"])},
                 "k": {"w": _t(s[f"{bp}.attn.k_proj.weight"]).T},
                 "v": {"w": _t(s[f"{bp}.attn.v_proj.weight"]).T, "b": _t(s[f"{bp}.attn.v_bias"])},
-                "inner_ln": ln(f"{bp}.attn.inner_attn_ln"),
-                "o": lin(f"{bp}.attn.proj"),
+                "inner_ln": _ln(s, f"{bp}.attn.inner_attn_ln"),
+                "o": _lin(s, f"{bp}.attn.proj"),
             },
-            "ln2": ln(f"{bp}.norm2"),
-            "mlp": {"w1": lin(f"{bp}.mlp.w1"), "w2": lin(f"{bp}.mlp.w2"),
-                    "ffn_ln": ln(f"{bp}.mlp.ffn_ln"), "w3": lin(f"{bp}.mlp.w3")},
+            "ln2": _ln(s, f"{bp}.norm2"),
+            "mlp": {"w1": _lin(s, f"{bp}.mlp.w1"), "w2": _lin(s, f"{bp}.mlp.w2"),
+                    "ffn_ln": _ln(s, f"{bp}.mlp.ffn_ln"), "w3": _lin(s, f"{bp}.mlp.w3")},
         })
     vision = {
         "patch": {"w": _patch_w(_t(s["vision_model.patch_embed.proj.weight"])),
@@ -406,7 +400,7 @@ def jina_params_from_hf(sd, cfg: JinaClipConfig) -> dict:
         "cls": _t(s["vision_model.cls_token"]).reshape(-1),
         "pos": _t(s["vision_model.pos_embed"])[0],
         "blocks": stack_layers(blocks),
-        "final_ln": ln("vision_model.norm"),
+        "final_ln": _ln(s, "vision_model.norm"),
         "proj": _t(s["vision_model.head.weight"]).T,
     }
     if "vision_model.head.bias" in s:
@@ -420,13 +414,13 @@ def jina_params_from_hf(sd, cfg: JinaClipConfig) -> dict:
     for i in range(cfg.text.layers):
         lp = f"{tp}.encoder.layer.{i}"
         tblocks.append({
-            "attn": {"q": lin(f"{lp}.attention.self.query"), "k": lin(f"{lp}.attention.self.key"),
-                     "v": lin(f"{lp}.attention.self.value"), "o": lin(f"{lp}.attention.output.dense")},
-            "attn_ln": ln(f"{lp}.attention.output.LayerNorm"),
-            "mlp": {"gated": {"w": _t(s[f"{lp}.mlp.gated_layers.weight"]).T}, "out": lin(f"{lp}.mlp.wo")},
-            "mlp_ln": ln(f"{lp}.mlp.layernorm"),
+            "attn": {"q": _lin(s, f"{lp}.attention.self.query"), "k": _lin(s, f"{lp}.attention.self.key"),
+                     "v": _lin(s, f"{lp}.attention.self.value"), "o": _lin(s, f"{lp}.attention.output.dense")},
+            "attn_ln": _ln(s, f"{lp}.attention.output.LayerNorm"),
+            "mlp": {"gated": {"w": _t(s[f"{lp}.mlp.gated_layers.weight"]).T}, "out": _lin(s, f"{lp}.mlp.wo")},
+            "mlp_ln": _ln(s, f"{lp}.mlp.layernorm"),
         })
-    text = {"tok": tok, "emb_ln": ln(f"{tp}.embeddings.LayerNorm"), "blocks": stack_layers(tblocks)}
+    text = {"tok": tok, "emb_ln": _ln(s, f"{tp}.embeddings.LayerNorm"), "blocks": stack_layers(tblocks)}
     s.finish()
     return {"vision": vision, "text": text}
 
@@ -453,7 +447,9 @@ class JinaClip(nn.Module):
 
 def jina_from_params(tree, cfg: JinaClipConfig, *, device, dtype=torch.float32) -> JinaClip:
     """A ``JinaClip`` holding a converted param tree's weights in ``dtype``
-    (with the EVA02 head's bias where the tree carries one)."""
+    (with the EVA02 head's bias where the tree carries one). Built on
+    ``device``: its rope tables and ALiBi slopes are buffers the tree does
+    not carry."""
     model = JinaClip(cfg, device=device, dtype=dtype)
     if "proj_b" in tree["vision"]:
         model.vision.proj_b = nn.Parameter(torch.zeros(cfg.vision.proj_dim, device=device, dtype=dtype),

@@ -60,9 +60,13 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
 
 
 def load_tree(module: nn.Module, tree: Mapping[str, Any], dtype=torch.float32, *, device) -> nn.Module:
-    """Load a JAX param tree into ``module`` (built on ``device`` in ``dtype``),
-    every name matched strictly. The tree's tensors take the place of the
-    module's own (``assign``), so no second copy of the weights stays on the
-    device. Returns ``module``."""
+    """Load a JAX param tree into ``module``, every name matched strictly.
+    The tree's tensors, on ``device`` in ``dtype``, take the place of the
+    module's own (``assign``), so a module built on the ``meta`` device holds
+    the tree's weights as their only copy. A tensor the tree does not fill (a
+    non-persistent buffer left on ``meta``) raises. Returns ``module``."""
     module.load_state_dict(params_from_jax(tree, dtype, device=device), strict=True, assign=True)
+    left = [name for name, t in (*module.named_parameters(), *module.named_buffers()) if t.is_meta]
+    if left:
+        raise ValueError(f"{type(module).__name__}: not filled by the tree: {left[:5]}")
     return module

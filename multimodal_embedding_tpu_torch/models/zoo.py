@@ -93,8 +93,9 @@ def hash_tokenizer(vocab_size: int, max_len: int, eos_id: int):
 
 
 def dual_encoder_from_params(tree, cfg: DualEncoderConfig, *, device, dtype=torch.float32) -> DualEncoder:
-    """A ``DualEncoder`` holding a converted param tree's weights in ``dtype``."""
-    return load_tree(DualEncoder(cfg, device=device, dtype=dtype), tree, dtype, device=device)
+    """A ``DualEncoder`` holding a converted param tree's weights in ``dtype``
+    (built on ``meta``: the tree's tensors are the only copy on ``device``)."""
+    return load_tree(DualEncoder(cfg, device="meta", dtype=dtype), tree, dtype, device=device)
 
 
 def load_model(
