@@ -61,6 +61,7 @@ and numpy.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -129,6 +130,7 @@ REAL_CLI_ARGS = [
     "--sample-size", "128", "--bootstrap-iterations", "100",
 ]
 MANIFESTS = ROOT / "tests" / "manifests"
+NORMAL_POOL = 536_870_909  # a prime above ColPali's largest key, its 257216 x 2048 embedding table
 COLPALI_SUFFIX_IDS = np.array([2, 10, 11, 12, 13, 14], np.int32)  # a 6-token image prompt suffix
 REFERENCE_COLUMNS = (
     ["Model", "Weights"]
@@ -1055,36 +1057,61 @@ def phase_other_models_consistency() -> None:
 # --- phase 6: converted checkpoints --------------------------------------------------
 
 
+@functools.cache
+def _normal_pool(seed: int) -> np.ndarray:
+    """NORMAL_POOL seeded normals with std 0.02 (2.1 GB, drawn once)."""
+    pool = np.random.default_rng(seed).standard_normal(NORMAL_POOL, dtype=np.float32)
+    pool *= 0.02
+    return pool
+
+
 class ManifestWeights(Mapping):
     """An HF-layout state dict at full published width: the keys and shapes of
     ``tests/manifests/<name>.json``, each value made as it is read (nothing is
     held: the converter reads each key once, and ColPali's f32 tree alone is
-    12 GB). A key of shape [R, ...] with C values a row (the flat index over
-    its other axes) is a random Toeplitz matrix: R + C - 1 normals drawn from
-    ``numpy.random.default_rng((seed, crc32(key)))``, the value at (i, j) the
-    draw ``j - i + R - 1``. So a key takes R + C draws, not R * C, and each
-    row, and each row of its transpose, is the row before moved one place
-    along: deflate finds it inside its 32 KB window wherever rows hold at
-    most 8125 values, so ``save_params`` of a converted CLIP-L or SigLIP tree
-    compresses fast where random values take minutes. A transposed or
-    misplaced weight still differs from the right one. LayerNorm scales are
-    near 1, Gemma's RMSNorm weights near 0 (its gain is 1 + w); every other
-    weight has std 0.02: zeros would hide a layout mistake."""
+    12 GB). Two ways to make a key's values, both seeded and both a few
+    seconds a model where drawing every value takes a minute for ColPali:
 
-    def __init__(self, name: str, seed: int = 0):
+    - ``toeplitz`` (the models whose trees go through the native cache): a
+      key of shape [R, ...] with C values a row is a random Toeplitz matrix,
+      R + C - 1 normals drawn from ``default_rng((seed, crc32(key)))``, the
+      value at (i, j) the draw ``j - i + R - 1``. Each row, and each row of
+      its transpose, is the row before moved one place along, inside
+      deflate's 32 KB window for rows of up to 8125 values, so
+      ``save_params`` deflates the converted tree fast where random values
+      take minutes.
+    - otherwise, a slice of one shared pool of normals (``_normal_pool``) at
+      an offset from the key's crc32: within a key the values are
+      independent normals (two keys may share some). ColPali needs this: on
+      Toeplitz weights ColPali in bf16, the plain path and the kernels
+      alike, falls below a mean per-token cosine of 0.999 against f32.
+
+    A transposed or misplaced weight differs from the right one in both.
+    LayerNorm scales are near 1, Gemma's RMSNorm weights near 0 (its gain is
+    1 + w); every other weight has std 0.02: zeros would hide a layout
+    mistake."""
+
+    def __init__(self, name: str, *, toeplitz: bool, seed: int = 0):
         self.shapes = json.loads((MANIFESTS / f"{name}.json").read_text())
+        self.toeplitz = toeplitz
         self.seed = seed
         self.draw_seconds = 0.0
 
     def __getitem__(self, key: str) -> np.ndarray:
         t0 = time.perf_counter()
         shape = self.shapes[key]
-        rows, cols = (shape[0], math.prod(shape[1:])) if shape else (1, 1)
-        diagonals = np.random.default_rng([self.seed, zlib.crc32(key.encode())]).standard_normal(
-            rows + cols - 1, dtype=np.float32)
-        diagonals *= 0.02
-        windows = np.lib.stride_tricks.sliding_window_view(diagonals, cols)
-        x = windows[::-1].copy().reshape(shape)  # row i: diagonals[R - 1 - i :][:C]
+        crc = zlib.crc32(key.encode())
+        if self.toeplitz:
+            rows, cols = (shape[0], math.prod(shape[1:])) if shape else (1, 1)
+            diagonals = np.random.default_rng([self.seed, crc]).standard_normal(rows + cols - 1, dtype=np.float32)
+            diagonals *= 0.02
+            windows = np.lib.stride_tricks.sliding_window_view(diagonals, cols)
+            x = windows[::-1].copy()  # row i: diagonals[R - 1 - i :][:C]
+        else:
+            pool, n = _normal_pool(self.seed), math.prod(shape)
+            start = crc * 2654435761 % NORMAL_POOL  # spread the 32-bit crc over the pool
+            x = np.concatenate([pool[start:start + n], pool[: max(0, start + n - NORMAL_POOL)]])
+        x = x.reshape(shape)
         module = key.split(".")[-2] if "." in key else ""
         if key.endswith(".weight") and ("norm" in module.lower() or module.endswith("_ln")) \
                 and "language_model." not in key:
@@ -1109,7 +1136,7 @@ def _convert(name: str) -> tuple[dict, object, float, float]:
     from multimodal_embedding_tpu_torch.models.registry import model_info
 
     kind = model_info(name).type
-    sd = ManifestWeights(name)
+    sd = ManifestWeights(name, toeplitz=name in CACHED_MODELS)
     t0 = time.perf_counter()
     if kind == "jina":
         cfg = jina_config_from_sd(sd)
