@@ -32,11 +32,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
      benchmark and read just after, every kernel of its path must have
      launched (Jina's towers have no attention kernel route: preprocess
      only), and its QPS and peak device memory are printed;
-  4. a bench-shaped throughput line (bench.py's run_once: 288 images of
-     480x640, batch 96, three timed passes from the staged cache);
+  4. the port bench's line (``multimodal_embedding_tpu_torch/bench.py:run_once``:
+     288 images of 480x640, batch 96, three timed passes from the staged cache);
   5. full-width consistency: CLS embeddings of 8 images through the kernels
-     in bf16, under both layer impls, against the plain versions in f32,
-     per-row cosine >= 0.999; ColPali per-token embeddings of 2 images and 4
+     in bf16, under both layer impls and ``--attention-impl flash``, against
+     the plain versions in f32, per-row cosine >= 0.999; ColPali per-token embeddings of 2 images and 4
      captions, the same way, per-token cosine >= 0.99 over valid tokens and
      exact-zero pad tokens; pooled embeddings of 8 images and 8 captions of
      each of the other five models, the same way (ViT-H and SigLIP under both
@@ -52,10 +52,30 @@ Phases, each of which fails the run (nonzero exit, no result line):
      mean >= 0.999, its MaxSim scores through the kernel); CLIP-L's and
      SigLIP-400M's trees written with ``save_params`` and reloaded give
      bit-equal embeddings; the CLI with ``--native-cache-dir`` and neither
-     debug flag scores both models from that cache (``Weights`` = real).
+     debug flag scores both models from that cache (``Weights`` = real);
+  7. the rest of Workload A at full width (arch-random weights, synthetic
+     data): the stager on the engine (256 records, 4 geometries: streaming
+     embeddings and the assembled cache bit-equal to the cached path's, the
+     upload stall), host against device transport on 32 images (pooled cosine
+     >= 0.999, pixels within one uint8 level of PIL's); the CLI for
+     OpenAI-CLIP-L (256 images) with ``--overlap-staging`` (the default; it
+     also writes ``--score-cache-dir``), ``--streaming-encode``, ``--transport
+     host --no-device-cache`` (no preprocess launch), ``--attention-impl flash``
+     (fewer attention launches: the masked text tower takes the plain path),
+     then a rerun from the score cache (the same metrics, no launch);
+     ``cli/multi_seed.py`` for OpenAI-CLIP-L and ColPali-v1.3 (128 images, 2
+     runs, synthetic Winoground: attention, preprocess and MaxSim launched,
+     finite scores, every R@K and Winoground % in [0, 100]);
+     ``cli/encode_cli.py`` then ``cli/search.py`` on a ColPali index (f32: the
+     f32 MaxSim kernel launched, top-10 ids equal to the plain path's);
+     ``cli/probe.py --weights arch`` for OpenAI-CLIP-L and ColPali-v1.3; and
+     ``cli/analyze.py`` on phase 3's five-model CSV and bootstrap sidecar
+     (permutation p-values in [0, 1]; multi_seed writes no sidecar).
 
-The last three lines are the kernels' JSON line, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
+The last three lines are the kernels' JSON line (``flash_sdpa``, the
+``--attention-impl flash`` route, runs the attention kernel: its numbers are
+``fused_attention``'s ViT-L case, its launches phase 7's flash run), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
 and numpy.
 """
 
@@ -893,43 +913,27 @@ def phase_main_path(kernels: list[dict]) -> None:
 # --- phases 4 and 5 ----------------------------------------------------------------
 
 
-def _bench_images(n: int) -> list[np.ndarray]:
-    rng = np.random.default_rng(0)
-    h, w = 480, 640
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = np.stack([(xx * 255 // w), (yy * 255 // h), ((xx + yy) * 255 // (h + w))], -1).astype(np.int16)
-    return [np.clip(base + rng.integers(0, 32, (h, w, 3)), 0, 255).astype(np.uint8) for _ in range(n)]
-
-
 def phase_bench_and_consistency() -> None:
     import copy
 
     import torch
 
+    from multimodal_embedding_tpu_torch import bench
     from multimodal_embedding_tpu_torch.models import layers
-    from multimodal_embedding_tpu_torch.models.arch import load_arch_model
-    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine, stage_images
-    from multimodal_embedding_tpu_torch.utils.timing import hard_sync
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
     dev = torch.device("cuda")
-    n_images, batch, passes = 288, 96, 3
-    model = load_arch_model("OpenAI-CLIP-L", seed=0, device=dev, dtype=torch.bfloat16)
-    images = _bench_images(n_images)
-    layers.set_attention_impl("auto")
-    engine = EncodingEngine(model, batch_size=batch, device=dev, preprocess_impl="auto")
-    cache = stage_images(images, batch, dev)
-    engine.encode_images_cached(cache)  # warmup pass
     torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    for _ in range(passes):
-        hard_sync(engine.encode_images_cached(cache).embeddings)
-    dt = time.perf_counter() - t0
-    print(f"[bench] clip_l_encode_images_per_sec={passes * n_images / dt} batch={batch} "
-          f"images={n_images} passes={passes} max_memory_allocated={torch.cuda.max_memory_allocated(dev)} "
-          f"card={card_line()}")
+    line = bench.run_once(dev)  # the port bench's own measurement
+    require(line["metric"] == bench.METRIC and line["value"] > 0, f"bench line {line}")
+    print(f"[bench] {json.dumps(line)} batch={bench.BATCH} images={bench.N_IMAGES} passes={bench.PASSES} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated(dev)} card={card_line()}")
 
-    # phase 5: the same weights, kernels in bf16 (both layer impls) vs plain versions in f32
-    few = images[:8]
+    model = bench.bench_model(dev)
+    engine = EncodingEngine(model, batch_size=8, device=dev, preprocess_impl="auto")
+    images = bench.bench_images(8)
+    # phase 5: the bench's weights, kernels in bf16 (both layer impls) vs plain versions in f32
+    few = images
     emb_kernel = engine.encode_images(few).embeddings
     layers.set_layer_impl("fused")
     try:
@@ -951,6 +955,16 @@ def phase_bench_and_consistency() -> None:
           f"{[round(float(c), 6) for c in cos_f]}; vs the xla-layer kernel-bf16 run: "
           f"{[round(float(c), 6) for c in cos_fx]}")
     require(bool((cos_f >= COSINE_MIN).all()), f"fused cosine {float(cos_f.min())} < {COSINE_MIN}")
+    # --attention-impl flash: the unmasked vision tower on the same kernel, no key mask
+    layers.set_attention_impl("flash")
+    try:
+        emb_flash = engine.encode_images(few).embeddings
+    finally:
+        layers.set_attention_impl("auto")
+    cos_fl = torch.nn.functional.cosine_similarity(emb_flash.float(), emb_plain.float(), dim=-1)
+    print(f"[consistency] per-image cosine --attention-impl flash kernel-bf16 vs plain-f32: "
+          f"{[round(float(c), 6) for c in cos_fl]}; bit-equal to the auto run: {bool(torch.equal(emb_flash, emb_kernel))}")
+    require(bool((cos_fl >= COSINE_MIN).all()), f"flash cosine {float(cos_fl.min())} < {COSINE_MIN}")
 
 
 CAPTIONS = ["a dog", "two people riding bicycles along a river at sunset",
@@ -967,12 +981,13 @@ def phase_colpali_consistency() -> None:
 
     import torch
 
+    from multimodal_embedding_tpu_torch import bench
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.arch import load_arch_model
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
     dev = torch.device("cuda")
-    images = _bench_images(2)
+    images = bench.bench_images(2)
     captions = CAPTIONS[:4]
     model = load_arch_model("ColPali-v1.3", seed=0, device=dev, dtype=torch.bfloat16)
     layers.set_attention_impl("auto")
@@ -1018,12 +1033,13 @@ def phase_other_models_consistency() -> None:
 
     import torch
 
+    from multimodal_embedding_tpu_torch import bench
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.arch import load_arch_model
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
     dev = torch.device("cuda")
-    images = _bench_images(8)
+    images = bench.bench_images(8)
     for name in OTHER_MODELS:
         model = load_arch_model(name, seed=0, device=dev, dtype=torch.bfloat16)
         engine = EncodingEngine(model, batch_size=8, device=dev, preprocess_impl="auto")
@@ -1218,6 +1234,7 @@ def phase_converted(kernels: list[dict]) -> None:
     """Phase 6 (see the module docstring)."""
     import torch
 
+    from multimodal_embedding_tpu_torch import bench
     from multimodal_embedding_tpu_torch.models import layers, zoo
     from multimodal_embedding_tpu_torch.models.arch import arch_tokenizer, full_arch_config
     from multimodal_embedding_tpu_torch.models.checkpoint import load_params, save_params
@@ -1225,7 +1242,7 @@ def phase_converted(kernels: list[dict]) -> None:
     mem = subprocess.run(["free", "-g"], capture_output=True, text=True, timeout=60).stdout
     print("[converted] host memory (free -g): " + " | ".join(" ".join(line.split()) for line in mem.splitlines()))
     card = card_line()
-    images = _bench_images(8)
+    images = bench.bench_images(8)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
 
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as cache_dir:
@@ -1313,6 +1330,238 @@ def phase_converted(kernels: list[dict]) -> None:
     torch.cuda.empty_cache()
 
 
+# --- phase 7: the rest of Workload A ------------------------------------------------
+
+STAGING_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", "OpenAI-CLIP-L",
+    "--sample-size", "256", "--bootstrap-iterations", "100", "--batch-size", "64",
+]
+MULTI_SEED_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", "OpenAI-CLIP-L,ColPali-v1.3",
+    "--sample-size", "128", "--runs", "2", "--mrr",
+]
+SEARCH_QUERIES = ["a dog catching a frisbee", "two people riding bicycles", "a red car", "kitchen"]
+WINO_COLUMNS = ("Wino Text", "Wino Image", "Wino Group")
+
+
+def _staging_checks(dev) -> dict:
+    """The stager, the streaming encode and the two transports on the
+    engine, at full width on 256 synthetic records: streaming embeddings and
+    the stager's assembled cache bit-equal to the cached path's; host
+    against device transport, pooled cosine and pixels in uint8 levels."""
+    import torch
+
+    from multimodal_embedding_tpu_torch import bench
+    from multimodal_embedding_tpu_torch.data.coco import load_benchmark_dataset
+    from multimodal_embedding_tpu_torch.models.encode import AsyncImageStager, EncodingEngine, stage_images
+    from multimodal_embedding_tpu_torch.ops.preprocess import host_resize_crop, scale_shift
+    from multimodal_embedding_tpu_torch.ops.preprocess_cuda import make_preprocess_cuda_fn
+
+    images = [r["image"] for r in load_benchmark_dataset("synthetic", sample_size=256, seed=42)]
+    model = bench.bench_model(dev)
+    engine = EncodingEngine(model, 64, device=dev, transport="device")
+    cache = stage_images(images, 64, dev)
+    cached = engine.encode_images_cached(cache)
+    stager = AsyncImageStager(images, 64, dev)
+    engine.warmup_streaming(stager)
+    t0 = time.perf_counter()
+    streamed = engine.encode_images_streaming(stager)
+    wall = time.perf_counter() - t0
+    assembled = stager.wait()
+    require(torch.equal(streamed.embeddings, cached.embeddings), "streaming embeddings differ from the cached path's")
+    require(all(torch.equal(a[2], b[2]) and a[1] == b[1] for a, b in zip(assembled.groups, cache.groups))
+            and len(assembled.groups) == len(cache.groups), "the stager's cache differs from stage_images'")
+    out = {"slices": len(stager.slice_plan), "stage_seconds": stager.stage_seconds,
+           "streaming_wall_s": wall, "streaming_compute_s": streamed.seconds, "upload_stall_s": wall - streamed.seconds,
+           "cached_encode_s": cached.seconds}
+    del cache, assembled, stager, cached, streamed
+    # host transport against device transport on 32 images
+    few = images[:32]
+    host = EncodingEngine(model, 64, device=dev, transport="host").encode_images(few).embeddings
+    devt = engine.encode_images(few).embeddings
+    cos = torch.nn.functional.cosine_similarity(host.float(), devt.float(), dim=-1)
+    cfg = model.preprocess
+    scale, shift = (torch.from_numpy(v).to(dev) for v in scale_shift(cfg))
+    worst = 0
+    for im in few:
+        h, w = im.shape[:2]
+        px = make_preprocess_cuda_fn(cfg, h, w, device=dev)(torch.from_numpy(im.transpose(2, 0, 1).copy())[None].to(dev))
+        levels = torch.round((px[0] - shift) / scale)
+        crop = torch.from_numpy(host_resize_crop(cfg, im).astype(np.float32)).to(dev)
+        worst = max(worst, int((levels - crop).abs().max()))
+    out.update(host_vs_device_cosine_min=float(cos.min()), host_vs_device_max_levels=worst)
+    require(float(cos.min()) >= COSINE_MIN, f"host vs device transport cosine {float(cos.min())} < {COSINE_MIN}")
+    require(worst <= 1, f"host vs device pixels differ by {worst} uint8 levels")
+    del model, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _v28_value(cell) -> float:
+    """The mean of a multi_seed "mean ± std" cell (or a plain number)."""
+    return float(str(cell).split("±")[0])
+
+
+def phase_workload_a(kernels: list[dict]) -> None:
+    """Phase 7 (see the module docstring)."""
+    import pandas as pd
+    import torch
+
+    from multimodal_embedding_tpu_torch.analysis import report
+    from multimodal_embedding_tpu_torch.cli import analyze, encode_cli, multi_seed, probe
+    from multimodal_embedding_tpu_torch.cli import search as search_cli
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.ops.maxsim_cuda import maxsim_scores_ref
+    from multimodal_embedding_tpu_torch.retrieval import search as search_mod
+
+    dev = torch.device("cuda")
+    card = card_line()
+    t_phase = time.perf_counter()
+    counters = _counters()
+    dense = lambda m: ("fused_attention", "preprocess")  # noqa: E731
+    paths: dict[str, dict] = {}
+
+    # 1. staging and transports: the engine's checks, then the CLI in each mode
+    checks = _staging_checks(dev)
+    print(f"[phase7] staging on the engine (256 images, 4 geometries, batch 64): {json.dumps(checks)}; card {card}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as score_dir:
+        try:
+            (overlap,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "staging_overlap.csv", dense)
+            (streaming,) = _main_path([*STAGING_ARGS, "--streaming-encode"], "staging_streaming.csv", dense)
+            (host,) = _main_path([*STAGING_ARGS, "--transport", "host", "--no-device-cache"], "transport_host.csv",
+                                 lambda m: ("fused_attention",))
+            # 2. --attention-impl flash
+            (flash,) = _main_path([*STAGING_ARGS, "--attention-impl", "flash"], "flash.csv", dense)
+            # 3. --score-cache-dir: the overlap run wrote the matrices; this run reads them
+            (resumed,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "score_cache.csv", lambda m: ())
+        finally:
+            layers.set_attention_impl("auto")
+    require(host["counts"]["preprocess"] == 0, f"--transport host launched the preprocess kernel: {host['counts']}")
+    # flash: the vision tower through the kernel (24 a batch of 64), the
+    # masked text tower through the plain f32 path
+    require(0 < flash["counts"]["fused_attention"] < overlap["counts"]["fused_attention"],
+            f"flash attention launches {flash['counts']}, overlap run {overlap['counts']}")
+    require(not any(resumed["counts"].values()), f"the score-cache rerun launched kernels: {resumed['counts']}")
+    for col in REFERENCE_COLUMNS[2:-5] + ["QPS", "Encoding_Time"]:
+        require(float(resumed["row"][col]) == float(overlap["row"][col]),
+                f"score-cache rerun {col} {resumed['row'][col]} != {overlap['row'][col]}")
+    print("[phase7] CLI OpenAI-CLIP-L, 256 images, batch 64: " + "; ".join(
+        f"{name} QPS={float(r['row']['QPS'])} Encoding_Time={float(r['row']['Encoding_Time'])} "
+        f"attention={r['counts']['fused_attention']} preprocess={r['counts']['preprocess']}"
+        for name, r in (("overlap-staging", overlap), ("streaming-encode", streaming),
+                        ("transport-host", host), ("attention-impl-flash", flash))))
+    print(f"[phase7] score cache rerun: same metrics and QPS {float(resumed['row']['QPS'])}, "
+          f"launches {json.dumps(resumed['counts'])}")
+    paths.update({"overlap-staging CLI": overlap["counts"], "streaming-encode CLI": streaming["counts"],
+                  "transport-host CLI": host["counts"], "attention-impl-flash CLI": flash["counts"]})
+    torch.cuda.empty_cache()
+
+    # 4. the V28 multi-seed CLI with Winoground
+    out = OUT_DIR / "v28.csv"
+    out.unlink(missing_ok=True)
+    scored = []
+    scores = multi_seed._scores
+
+    def recording(*a, **kw):
+        s = scores(*a, **kw)
+        scored.extend((tuple(x.shape), bool(x.isfinite().all())) for x in s)
+        return s
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    multi_seed._scores = recording
+    try:
+        rc = multi_seed.main([*MULTI_SEED_ARGS, "--output", str(out)])
+    finally:
+        multi_seed._scores = scores
+    v28_counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    require(rc == 0, f"multi_seed exited {rc}")
+    for n in ("fused_attention", "preprocess", "maxsim"):
+        require(v28_counts[n] > 0, f"kernel {n} was not launched by multi_seed: {v28_counts}")
+    require(scored and all(f for _, f in scored), f"multi_seed score matrices {scored}")
+    df = pd.read_csv(out)
+    require(list(df["Model"]) == ["OpenAI-CLIP-L", "ColPali-v1.3"], f"multi_seed rows {list(df['Model'])}")
+    for _, row in df.iterrows():
+        for col in [c for c in df.columns if "R@" in c] + list(WINO_COLUMNS):
+            val = _v28_value(row[col])
+            require(math.isfinite(val) and 0.0 <= val <= 100.0, f"multi_seed {row['Model']} {col} = {row[col]}")
+    print(f"[phase7] multi_seed {' '.join(MULTI_SEED_ARGS[4:])}: launches {json.dumps(v28_counts)}; " + "; ".join(
+        f"{row['Model']} T2I_R@1={row['T2I_R@1']} I2T_R@10={row['I2T_R@10']} Wino={[row[c] for c in WINO_COLUMNS]} "
+        f"QPS={row['QPS']}" for _, row in df.iterrows()))
+    paths["multi_seed CLI"] = v28_counts
+    torch.cuda.empty_cache()
+
+    # 5. encode_cli then search for ColPali: the f32 MaxSim kernel on a multi-vector index
+    index_path = OUT_DIR / "colpali_index.npz"
+    rc = encode_cli.main(["--model", "ColPali-v1.3", "--dataset", "synthetic", "--arch-models", "--sample-size", "64",
+                          "--no-texts", "--output", str(index_path)])
+    require(rc == 0, f"encode_cli exited {rc}")
+    searched = []
+    search = search_mod.Index.search
+
+    def recording_search(self, queries, k=10, query_mask=None):
+        ids, top = search(self, queries, k, query_mask)
+        searched.append((self, queries, query_mask, ids, top))
+        return ids, top
+
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    search_mod.Index.search = recording_search
+    try:
+        rc = search_cli.main(["--index", str(index_path), "--model", "ColPali-v1.3", "--arch-models", "--k", "10",
+                              *[a for q in SEARCH_QUERIES for a in ("--query", q)]])
+    finally:
+        search_mod.Index.search = search
+    search_counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    require(rc == 0 and len(searched) == 1, f"search exited {rc} after {len(searched)} searches")
+    index, queries, qmask, ids, top = searched[0]
+    require(index.multi_vector and index.embeddings.dtype == torch.float32, "the ColPali index is not f32 multi-vector")
+    require(search_counts["maxsim"] > 0, f"the index search did not launch the MaxSim kernel: {search_counts}")
+    plain = maxsim_scores_ref(queries.float(), index.embeddings, q_mask=qmask)
+    plain_top, plain_idx = torch.sort(plain, dim=1, descending=True, stable=True)
+    plain_ids = index.ids[plain_idx[:, :10].cpu().numpy()]
+    require(np.array_equal(ids, plain_ids), f"search top-10 ids {ids.tolist()} != plain {plain_ids.tolist()}")
+    err = float(np.abs(top - plain_top[:, :10].cpu().numpy()).max())
+    print(f"[phase7] ColPali index search ({tuple(index.embeddings.shape)} f32, {len(SEARCH_QUERIES)} queries): "
+          f"top-10 ids equal to the plain path's; max score |d| {err}; launches {json.dumps(search_counts)}")
+    paths["ColPali search CLI"] = search_counts
+    del searched, index, queries, plain
+    torch.cuda.empty_cache()
+
+    # 6. the probe at full width
+    rc = probe.main(["--models", "OpenAI-CLIP-L,ColPali-v1.3", "--weights", "arch"])
+    require(rc == 0, f"probe --weights arch exited {rc}")
+    torch.cuda.empty_cache()
+
+    # 7. the analyzer on phase 3's five-model CSV and its bootstrap sidecar
+    # (multi_seed writes the V28 schema and no sidecar, in both packages)
+    csv = OUT_DIR / "other_models.csv"
+    rc = analyze.main(["--input", str(csv), "--output", str(OUT_DIR / "report.md")])
+    require(rc == 0, f"analyze exited {rc}")
+    sig, method = report.pairwise_significance(pd.read_csv(csv), "T2I_R@1", report.load_bootstrap_sidecar(csv),
+                                               device=dev)
+    p = sig.to_numpy()
+    require(method.startswith("permutation") and bool(((p >= 0) & (p <= 1)).all()), f"p-values {method}: {p}")
+    print(f"[phase7] analyze: {method}; T2I_R@1 p-values {json.dumps(sig.round(6).to_dict())}")
+
+    for k in kernels:
+        for name, counts in paths.items():
+            k["launches_by_path"][name] = counts[k["name"]]
+    root = "multimodal_embedding_tpu_torch/csrc"
+    attn = next(k for k in kernels if k["name"] == "fused_attention")
+    kernels.append(
+        # the same kernel at the same shape (ViT-L b64, no key mask): its
+        # numbers are fused_attention's headline case
+        {"name": "flash_sdpa", "route": "cuda", "source": f"{root}/attention.cu",
+         "replaces": "multimodal_embedding_tpu/models/layers.py:220",
+         "path": "--attention-impl flash: unmasked self-attention through ops/attention_cuda.py:fused_attention",
+         **{key: attn[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "launches": flash["counts"]["fused_attention"], "launches_by_path": {"attention-impl-flash CLI": flash["counts"]["fused_attention"]}}
+    )
+    print(f"[phase7] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1341,6 +1590,7 @@ def main() -> int:
     phase_colpali_consistency()
     phase_other_models_consistency()
     phase_converted(kernels)
+    phase_workload_a(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -51,29 +51,38 @@ ACTIVATIONS = {
 #  - "pallas":   the fused attention kernel (ops/attention_cuda.py); the name
 #                of the TPU package's kernel route, kept so its command lines
 #                run unchanged. On CPU tensors the kernel's plain version.
+#  - "flash":    the TPU package's route to jax's library flash-attention
+#                kernel (JAX models/layers.py:_flash_sdpa): self-attention
+#                with no key mask (causal or not) goes to the same fused
+#                kernel, over the real T tokens (the TPU kernel's padding of T
+#                to 128 is a lane rule); every other call (a key mask, cross
+#                attention) takes the "xla" path, as in the JAX package.
 #  - "xla":      einsum SDPA with f32 logits and -inf masking;
 #  - "xla_bf16": the same with logits computed in the model dtype;
 #  - "auto":     "pallas" for CUDA tensors, "xla" on the CPU. No TPU
 #                crossovers carry over: on the card every tower
 #                self-attention goes to the kernel.
-ATTENTION_IMPLS = ("auto", "xla", "xla_bf16", "pallas")
+ATTENTION_IMPLS = ("auto", "xla", "xla_bf16", "pallas", "flash")
 _ATTENTION_IMPL = "auto"
 
 
 def set_attention_impl(impl: str) -> None:
     global _ATTENTION_IMPL
-    if impl == "flash":
-        raise NotImplementedError("--attention-impl flash is not yet ported")
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention impl must be one of {ATTENTION_IMPLS}, not {impl!r}")
     _ATTENTION_IMPL = impl
 
 
+def get_attention_impl(device) -> str:
+    """Resolved implementation for tensors on ``device`` (never "auto")."""
+    if _ATTENTION_IMPL == "auto":
+        return "pallas" if torch.device(device).type == "cuda" else "xla"
+    return _ATTENTION_IMPL
+
+
 def attention_impl_for(x: torch.Tensor) -> str:
     """Resolved implementation for activations ``x`` (never "auto")."""
-    if _ATTENTION_IMPL == "auto":
-        return "pallas" if x.is_cuda else "xla"
-    return _ATTENTION_IMPL
+    return get_attention_impl(x.device)
 
 
 # Encoder-layer implementation:
@@ -109,15 +118,19 @@ def attention_core(
     *,
     causal: bool = False,
     mask: torch.Tensor | None = None,
+    self_attn: bool = True,
 ) -> torch.Tensor:
     """Scaled-dot-product attention over projected activations.
 
-    qf [B, Tq, D]; kf/vf [B, Tk, D]; mask [B, Tk] (nonzero = attend).
+    qf [B, Tq, D]; kf/vf [B, Tk, D]; mask [B, Tk] (nonzero = attend);
+    ``self_attn`` False for cross attention (only "flash" reads it).
     Returns [B, Tq, D] in qf's dtype (before the output projection)."""
     b, tq, d = qf.shape
     tk = kf.shape[1]
     dh = d // n_heads
     impl = attention_impl_for(qf)
+    if impl == "flash":
+        impl = "pallas" if self_attn and mask is None else "xla"
 
     if impl == "pallas":
         # packed layout: the kernel reads the [B, T, H*Dh] projection output
@@ -198,8 +211,10 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, *, kv: torch.Tensor | None = None, causal: bool = False,
                 mask: torch.Tensor | None = None):
+        self_attn = kv is None
         kv = x if kv is None else kv
-        out = attention_core(self.q(x), self.k(kv), self.v(kv), self.n_heads, causal=causal, mask=mask)
+        out = attention_core(self.q(x), self.k(kv), self.v(kv), self.n_heads, causal=causal, mask=mask,
+                             self_attn=self_attn)
         return self.o(out)
 
 

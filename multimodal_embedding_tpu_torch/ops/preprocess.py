@@ -174,6 +174,26 @@ def make_preprocess_fn(
     return fn
 
 
+_PIL_RESAMPLE = {"bicubic": 3, "bilinear": 2}  # PIL.Image.BICUBIC / BILINEAR
+
+
+def host_resize_crop(cfg: PreprocessConfig, img: np.ndarray) -> np.ndarray:
+    """PIL resize + center crop on the host -> uint8 [C, C, 3] (the HF
+    processor's geometry stage; the "host" transport of the encoding
+    engine, which then normalizes on the device)."""
+    from PIL import Image
+
+    h, w = img.shape[:2]
+    rh, rw = cfg.resize_target(h, w)
+    pil = Image.fromarray(img)
+    if (rh, rw) != (h, w):
+        pil = pil.resize((rw, rh), resample=_PIL_RESAMPLE[cfg.interpolation])
+    c = cfg.image_size
+    top = (rh - c) // 2
+    left = (rw - c) // 2
+    return np.asarray(pil)[top : top + c, left : left + c]
+
+
 def make_normalize_fn(cfg: PreprocessConfig, input_format: str = "nchw", *, device):
     """Normalize-only fn for crop-sized uint8 on ``device``.
 

@@ -43,11 +43,17 @@ def recall_at_k(ranks: torch.Tensor, k: int) -> torch.Tensor:
     return 100.0 * ((ranks < k).float().sum() * inv_n)
 
 
+def mrr(ranks: torch.Tensor) -> torch.Tensor:
+    """Mean reciprocal rank (the v15-v19 metric), in f32."""
+    return torch.mean(1.0 / (1.0 + ranks.float()))
+
+
 def compute_metrics(
     scores_t2i: torch.Tensor,
     scores_i2t: torch.Tensor,
     scores_i2t_sym: torch.Tensor | None = None,
     ks: tuple[int, ...] = DEFAULT_KS,
+    include_mrr: bool = False,
     caps_per_image: int = 5,
 ) -> dict[str, float]:
     """Single-pass (non-bootstrap) metrics, v28 protocol: T2I query i targets
@@ -59,10 +65,14 @@ def compute_metrics(
     r_t2i = ranks_from_scores(scores_t2i, diag)
     for k in ks:
         out[f"T2I_R@{k}"] = float(recall_at_k(r_t2i, min(k, scores_t2i.shape[1])))
+    if include_mrr:
+        out["T2I_MRR"] = float(mrr(r_t2i))
     groups = diag[:, None] * caps_per_image + torch.arange(caps_per_image, device=diag.device)[None, :]
     r_i2t = multi_target_ranks(scores_i2t, groups)
     for k in ks:
         out[f"I2T_R@{k}"] = float(recall_at_k(r_i2t, min(k, scores_i2t.shape[1])))
+    if include_mrr:
+        out["I2T_MRR"] = float(mrr(r_i2t))
     if scores_i2t_sym is not None:
         r_sym = ranks_from_scores(scores_i2t_sym, diag)
         for k in ks:

@@ -11,7 +11,8 @@ differently in the two packages).
 
 Also here: the port imports nothing of JAX or the JAX package, its copies of
 the JAX-free host modules behave the same, and its CLI refuses to run on the
-CPU unless asked to and refuses the flags it does not carry yet.
+CPU unless asked to and refuses the flags it does not carry yet (tensor and
+sequence parallelism).
 """
 
 import ast
@@ -124,18 +125,18 @@ def test_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flags", [
-    ["--attention-impl", "flash"], ["--tensor-parallel", "2"],
-    ["--sequence-parallel", "2"], ["--transport", "host"], ["--streaming-encode"],
-    ["--score-cache-dir", "scores"],
-])
+@pytest.mark.parametrize("flags", [["--tensor-parallel", "2"], ["--sequence-parallel", "2"]])
 def test_cli_rejects_unported_flags(tmp_path, flags):
     with pytest.raises(NotImplementedError):
         tcli.main(["--device", "cpu", "--dataset", "synthetic", "--sample-size", "4",
                    "--output", str(tmp_path / "x.csv"), "--debug-models", *flags])
 
 
-@pytest.mark.parametrize("flags", [["--layer-impl", "fused"], ["--layer-impl", "xla"], ["--native-cache-dir", "cache"]])
+@pytest.mark.parametrize("flags", [
+    ["--layer-impl", "fused"], ["--layer-impl", "xla"], ["--native-cache-dir", "cache"],
+    ["--attention-impl", "flash"], ["--transport", "host"], ["--streaming-encode"],
+    ["--score-cache-dir", "scores"], ["--no-overlap-staging"],
+])
 def test_cli_accepts_ported_flags(flags):
     tcli._reject_unported(tcli.parse_args(["--device", "cpu", "--debug-models", *flags]))
 
