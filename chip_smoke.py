@@ -11,7 +11,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
   2. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes (OpenAI-CLIP-L, ColPali-v1.3 and the fused encoder
      layer's; the ViT-H and SigLIP-So400m towers, the MAP head's one probe
-     row over 729 keys, and the four other models' preprocess recipes; plus
+     row over 729 keys, and the four other models' preprocess recipes; the
+     left-padded causal prefills of Qwen3-14B and the small Qwen3; plus
      attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
      checked on its first 64 queries),
      with the tolerances stated below, and time both, the one
@@ -71,6 +72,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
      ``cli/probe.py --weights arch`` for OpenAI-CLIP-L and ColPali-v1.3; and
      ``cli/analyze.py`` on phase 3's five-model CSV and bootstrap sidecar
      (permutation p-values in [0, 1]; multi_seed writes no sidecar).
+
+  8. Workload B serving (arch-random, bf16, seeded CUDA generators):
+     Qwen3-14B (``QWEN3_14B``) at full width cut to 4 layers, the prefill's
+     hidden states at valid positions and the first-token logits through the
+     kernels in bf16 against the plain attention path in f32, per-row cosine
+     >= 0.999; then all 40 layers through ``rl.verify.evaluate_merged`` (128
+     synthetic support tickets, batch 64, prompts left-padded to 256, 48
+     greedy tokens; LoRA adapters from ``lora_init`` with ``b`` drawn at std
+     0.02): the attention kernel launched 40 times a ``generate`` and never
+     while decoding, every rate in [0, 100], with the prefill ms, the decode
+     ms a step, a step alone (``ms`` and ``device_ms``, beside its bound,
+     and its host time by op from torch.profiler),
+     decode tokens/s and peak device memory; then the same merged weights on
+     the plain attention path for the first batch (the share of equal greedy
+     tokens; first-token logit cosine >= 0.99 a row); and
+     ``cli/verify_rl.py`` for ``--arch qwen3`` and ``--arch gemma`` at
+     ``--model-size small --baseline --dataset-size 16`` with an adapters
+     ``.npz`` the phase writes (the stats line parses, each rate in [0, 100],
+     the attention kernel launched).
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
@@ -229,8 +249,11 @@ def phase_build() -> float:
 # --- phase 2 -------------------------------------------------------------------
 
 
-def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, full_mask_rows, rng, tq=None):
-    """``tq`` query rows (default ``t``) against ``t`` keys."""
+def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, full_mask_rows, rng, tq=None,
+                    left_padded=False):
+    """``tq`` query rows (default ``t``) against ``t`` keys; ``left_padded``
+    keeps each sequence's valid keys at its end (a generation prefill), so
+    under ``causal`` every pad query row is fully masked."""
     import torch
     import torch.nn.functional as F
 
@@ -250,12 +273,20 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     km = None
     if masked:
         lengths = rng.integers(3, t + 1, size=b)
-        km_np = (np.arange(t)[None, :] < lengths[:, None]).astype(np.int32)
+        if left_padded:
+            km_np = (np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)
+        else:
+            km_np = (np.arange(t)[None, :] < lengths[:, None]).astype(np.int32)
         if full_mask_rows:
             km_np[-1] = 0  # every query row of the last sequence is fully masked
             km_np[0, 0] = 0  # with causal, query row 0 of sequence 0 is fully masked
         km = torch.from_numpy(km_np).to(dev)
     kw = dict(causal=causal, layout=layout, num_heads=h, num_kv_heads=kvh)
+    valid = torch.ones(b, 1, tq, t, dtype=torch.bool, device=dev)
+    if km is not None:
+        valid = valid & km.bool()[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(tq, t, dtype=torch.bool, device=dev).tril()
 
     out = attention_cuda.fused_attention(q, k, v, km, **kw)
     torch.cuda.synchronize()
@@ -275,6 +306,9 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
         require(bool((o4[-1] == 0).all()), f"attention {name}: fully masked sequence not exact zeros")
         if causal:
             require(bool((o4[0, :, 0] == 0).all()), f"attention {name}: fully masked row not exact zeros")
+        dead = ~valid[:, 0].any(-1)  # [B, Tq]: every fully masked query row (all pad rows when left-padded)
+        require(bool((o4.transpose(1, 2)[dead] == 0).all()),
+                f"attention {name}: {int(dead.sum())} fully masked rows not all exact zeros")
 
     ms = cuda_time_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
     dev_ms = device_ms(lambda: attention_cuda.fused_attention(q, k, v, km, **kw))
@@ -284,13 +318,8 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
         return x if layout == "bhtd" else x.reshape(b, n, nh, dh).transpose(1, 2)
 
     q4, k4, v4 = bhtd(q, h, tq), bhtd(k, kvh, t), bhtd(v, kvh, t)
-    if kvh != h:
+    if kvh != h:  # SDPA's GQA: K/V expanded outside the timed call
         k4, v4 = k4.repeat_interleave(h // kvh, 1), v4.repeat_interleave(h // kvh, 1)
-    valid = torch.ones(b, 1, tq, t, dtype=torch.bool, device=dev)
-    if km is not None:
-        valid = valid & km.bool()[:, None, None, :]
-    if causal:
-        valid = valid & torch.ones(tq, t, dtype=torch.bool, device=dev).tril()
     attn_mask = valid if (masked or causal) else None
     library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask))
 
@@ -609,6 +638,14 @@ def attention_cases() -> list[tuple[str, dict]]:
                                      layout="packed", full_mask_rows=False)),
         ("vit-h text packed causal+mask", dict(b=128, h=16, kvh=16, t=77, dh=64, dtype=bf16, causal=True,
                                                masked=True, layout="packed", full_mask_rows=False)),
+        # Workload B's prefill (phase 8), prompts left-padded to 256: Qwen3-14B
+        # (40 query heads over 8 KV heads, Dh 128) in bf16, and the CLI's small
+        # Qwen3 (8 over 4, Dh 64) in f32, its random init's dtype
+        ("qwen3-14b prefill packed gqa causal+mask, left-padded", dict(
+            b=64, h=40, kvh=8, t=256, dh=128, dtype=bf16, causal=True, masked=True, layout="packed",
+            full_mask_rows=True, left_padded=True)),
+        ("qwen3-small prefill", dict(b=8, h=8, kvh=4, t=256, dh=64, dtype=torch.float32, causal=True, masked=True,
+                                     layout="packed", full_mask_rows=True, left_padded=True)),
     ]
 
 
@@ -1562,6 +1599,291 @@ def phase_workload_a(kernels: list[dict]) -> None:
     print(f"[phase7] {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 8: Workload B serving ------------------------------------------------------
+
+VERIFY_TICKETS, VERIFY_BATCH, VERIFY_PROMPT_LEN, VERIFY_NEW = 128, 64, 256, 48
+CONSISTENCY_LAYERS = 4  # the full-width Qwen3-14B check's depth
+QWEN3_LOGIT_COSINE_MIN = 0.99  # first-token logits, 40 bf16 layers against the plain attention path
+VERIFY_CLI_ARGS = ["--model-size", "small", "--baseline", "--dataset-size", "16"]
+
+
+def _cosines(a, b):
+    """Per-row cosine of two [N, D] tensors, in f64."""
+    import torch
+
+    return torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=-1)
+
+
+def _write_adapters(model, path: Path, seed: int) -> dict:
+    """``lora_init`` adapters (rank 16, alpha 32) with ``b`` drawn at std
+    0.02 from the same seeded generator, so the merge is not the identity;
+    written as the ``.npz`` the CLIs read (``<target>.a`` / ``<target>.b``)
+    when ``path`` is given."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.rl.lora import LoraConfig, lora_init
+
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    adapters = lora_init(model, LoraConfig(), generator=gen)
+    for ab in adapters.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=model.device) * 0.02
+    if path is not None:
+        np.savez(path, **{f"{n}.{p}": ab[p].cpu().numpy() for n, ab in adapters.items() for p in ("a", "b")})
+    return adapters
+
+
+def _qwen3_consistency(dev) -> dict:
+    """QWEN3_14B at full width cut to 4 layers (untied head): the prefill's
+    hidden states at valid positions and the first-token logits, the kernels
+    in bf16 against the plain attention path in f32 on the same weights."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+
+    cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
+    model = Qwen3(cfg, gen=torch.Generator(device=dev).manual_seed(1), device=dev, dtype=torch.bfloat16)
+    model32 = copy.deepcopy(model).float()
+    rng = np.random.default_rng(8)
+    b, t = 8, VERIFY_PROMPT_LEN
+    lengths = np.array([t, 200, 131, 64, 40, 17, 3, 1])
+    mask_np = (np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)
+    ids_np = np.where(mask_np > 0, rng.integers(3, cfg.vocab_size, size=(b, t)), 0)
+    ids, mask = torch.from_numpy(ids_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    valid = mask.bool()
+    with torch.no_grad():
+        attention_cuda.launches = 0
+        hk, _ = model.prefill(ids, mask, t)
+        lk = model.lm_logits(hk[:, -1:])[:, 0]
+        launches = attention_cuda.launches
+        layers.set_attention_impl("xla")
+        try:
+            hp, _ = model32.prefill(ids, mask, t)
+            lp = model32.lm_logits(hp[:, -1:])[:, 0]
+        finally:
+            layers.set_attention_impl("auto")
+    require(launches == CONSISTENCY_LAYERS, f"4-layer prefill launched the attention kernel {launches} times")
+    cos_h, cos_l = _cosines(hk[valid], hp[valid]), _cosines(lk, lp)
+    out = {"layers": CONSISTENCY_LAYERS, "batch": b, "prompt_lengths": lengths.tolist(),
+           "hidden_cosine_min": float(cos_h.min()), "hidden_cosine_mean": float(cos_h.mean()),
+           "valid_rows": int(valid.sum()), "first_logits_cosine": [round(float(c), 6) for c in cos_l],
+           "first_token_argmax_equal": int((lk.argmax(-1) == lp.argmax(-1)).sum())}
+    require(bool(torch.isfinite(hk[valid]).all()) and bool(torch.isfinite(lk).all()), "non-finite Qwen3 outputs")
+    require(float(cos_h.min()) >= COSINE_MIN and float(cos_l.min()) >= COSINE_MIN,
+            f"Qwen3-14B 4-layer kernels-bf16 vs plain-f32 cosine {out} < {COSINE_MIN}")
+    del model, model32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _host_breakdown(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under torch.profiler (CPU and CUDA): the ops it
+    launched, their summed self CPU time, and the ops that took the most of
+    it (self CPU ms and calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    kernels = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"aten_calls": sum(e.count for e in ops), "device_kernels": kernels,
+            "aten_self_cpu_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+            "top": [[e.key, e.count, e.self_cpu_time_total / 1e3] for e in ops[:top]]}
+
+
+def _qwen3_serving(dev) -> dict:
+    """QWEN3_14B at full depth in bf16: ``rl.verify.evaluate_merged`` on 128
+    synthetic support tickets, batch 64, prompts left-padded to 256, 48 new
+    tokens; then the same merged weights through the plain attention path on
+    the first batch."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+    from multimodal_embedding_tpu_torch.rl import verify
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.generate import generate
+    from multimodal_embedding_tpu_torch.rl.lora import LoraConfig
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Qwen3(QWEN3_14B, gen=torch.Generator(device=dev).manual_seed(0), device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    adapters = _write_adapters(model, None, seed=2)
+    dataset = generate_support_tickets(VERIFY_TICKETS, seed=43)  # verify_rl's default seed + 1
+
+    calls: list[dict] = []
+    calls_prefill: list[float] = []
+    decode_launches = [0]
+    prefill, decode_step = Qwen3.prefill, Qwen3.decode_step
+
+    def timed_generate(m, ids, mask, max_new, **kw):
+        torch.cuda.synchronize()
+        a0, t0 = attention_cuda.launches, time.perf_counter()
+        toks, logps = generate(m, ids, mask, max_new, **kw)
+        torch.cuda.synchronize()
+        calls.append({"model": m, "ids": ids, "mask": mask, "toks": toks, "s": time.perf_counter() - t0,
+                      "attention": attention_cuda.launches - a0})
+        return toks, logps
+
+    def timed_prefill(m, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(m, *a, **kw)
+        torch.cuda.synchronize()
+        calls_prefill.append(time.perf_counter() - t0)
+        return out
+
+    def counted_decode_step(m, *a, **kw):
+        a0 = attention_cuda.launches
+        out = decode_step(m, *a, **kw)
+        decode_launches[0] += attention_cuda.launches - a0
+        return out
+
+    verify.generate, Qwen3.prefill, Qwen3.decode_step = timed_generate, timed_prefill, counted_decode_step
+    try:
+        t0 = time.perf_counter()
+        stats = verify.evaluate_merged(model, adapters, LoraConfig(), dataset, "category", max_new=VERIFY_NEW,
+                                       batch_size=VERIFY_BATCH, max_prompt_len=VERIFY_PROMPT_LEN)
+        eval_s = time.perf_counter() - t0
+    finally:
+        verify.generate, Qwen3.prefill, Qwen3.decode_step = generate, prefill, decode_step
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_calls = VERIFY_TICKETS // VERIFY_BATCH
+    require(len(calls) == n_calls == len(calls_prefill), f"{len(calls)} generate calls, want {n_calls}")
+    per_call = [c["attention"] for c in calls]
+    require(per_call == [QWEN3_14B.layers] * n_calls and decode_launches[0] == 0,
+            f"attention launches per generate {per_call} (want {QWEN3_14B.layers} each), "
+            f"{decode_launches[0]} during decode (want 0)")
+    for k in ("no_think_rate", "clean_json_rate", "accuracy"):
+        require(0.0 <= stats[k] <= 100.0, f"verify {k} = {stats[k]}")
+    decode_s = [c["s"] - p for c, p in zip(calls, calls_prefill)]
+    out = {"init_s": init_s, "evaluate_s": eval_s, "stats": stats, "attention_launches_per_generate": per_call,
+           "prefill_ms": [1e3 * p for p in calls_prefill], "generate_s": [c["s"] for c in calls],
+           "decode_step_ms": [1e3 * d / VERIFY_NEW for d in decode_s],
+           "decode_tokens_per_s": [VERIFY_BATCH * VERIFY_NEW / d for d in decode_s], "peak_memory_bytes": peak}
+
+    # one decode step alone, on the merged weights: events around the call
+    # (host time included) against the device time of its kernels
+    merged, ids, mask, toks = (calls[0][k] for k in ("model", "ids", "mask", "toks"))
+    cfg = merged.cfg
+    tp = ids.shape[1]
+    with torch.no_grad():
+        hidden, kv = merged.prefill(ids, mask, tp + VERIFY_NEW)
+        first_k = merged.lm_logits(hidden[:, -1:])[:, 0]
+        del hidden
+        cache_valid = torch.cat([mask > 0, torch.zeros(ids.shape[0], VERIFY_NEW, dtype=torch.bool, device=dev)], 1)
+        cache_valid[:, tp] = True
+        args = (kv, toks[:, 0], mask.sum(-1), tp, cache_valid)
+        step_ms = cuda_time_ms(lambda: merged.decode_step(*args))
+        step_dev_ms = device_ms(lambda: merged.decode_step(*args))
+        host = _host_breakdown(lambda: merged.decode_step(*args))
+    # its bound: every layer weight, the head and the whole cache read once;
+    # the products' operations (2 a weight a row, QK^T and PV over the cache)
+    weights = sum(p.numel() for p in merged.layers.parameters()) + merged.lm_head.numel()
+    cache_bytes = 2 * kv["k"].numel() * kv["k"].element_size()
+    flops = 2.0 * weights * VERIFY_BATCH + 4.0 * VERIFY_BATCH * cfg.heads * (tp + VERIFY_NEW) * cfg.head_dim * cfg.layers
+    step_bound, step_by = bound_ms(flops, 2 * weights + cache_bytes, PEAK_BF16_FLOPS)
+    del kv, args
+    out.update(decode_step_alone_ms=step_ms, decode_step_device_ms=step_dev_ms, decode_step_bound_ms=step_bound,
+               decode_step_bound_by=step_by, weight_bytes=2 * weights, cache_bytes=cache_bytes,
+               decode_step_host=host)
+
+    # the same merged weights through the plain attention path, first batch
+    layers.set_attention_impl("xla")
+    try:
+        attention_cuda.launches = 0
+        plain_toks, _ = generate(merged, ids, mask, VERIFY_NEW, greedy=True)
+        with torch.no_grad():
+            hidden, _ = merged.prefill(ids, mask, tp)
+            first_p = merged.lm_logits(hidden[:, -1:])[:, 0]
+        require(attention_cuda.launches == 0, "the plain path launched the attention kernel")
+    finally:
+        layers.set_attention_impl("auto")
+    cos = _cosines(first_k, first_p)
+    out.update(plain_token_agreement=float((plain_toks == toks).float().mean()),
+               plain_first_token_equal=float((plain_toks[:, 0] == toks[:, 0]).float().mean()),
+               plain_first_logits_cosine_min=float(cos.min()))
+    require(float(cos.min()) >= QWEN3_LOGIT_COSINE_MIN,
+            f"Qwen3-14B first-token logits, kernel vs plain attention: cosine {float(cos.min())} "
+            f"< {QWEN3_LOGIT_COSINE_MIN}")
+    del model, merged, calls, adapters, hidden
+    torch.cuda.empty_cache()
+    return out
+
+
+def _verify_cli(arch: str, adapters_path: Path) -> tuple[dict, dict]:
+    """``cli/verify_rl.py`` in-process: (its stats line, the launch counts)."""
+    import ast
+    import contextlib
+    import io
+
+    from multimodal_embedding_tpu_torch.cli import verify_rl
+
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = verify_rl.main(["--arch", arch, *VERIFY_CLI_ARGS, "--adapters", str(adapters_path)])
+    counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    text = buf.getvalue()
+    require(rc == 0, f"verify_rl --arch {arch} exited {rc}: {text[-2000:]}")
+    stats = ast.literal_eval(text.strip().splitlines()[-1])
+    for k in ("no_think_rate", "clean_json_rate", "accuracy"):
+        require(0.0 <= stats[k] <= 100.0, f"verify_rl --arch {arch} {k} = {stats[k]}")
+    require(stats["n"] == 16 and counts["fused_attention"] > 0, f"verify_rl --arch {arch}: {stats}, {counts}")
+    return stats, counts
+
+
+def phase_workload_b(kernels: list[dict]) -> None:
+    """Phase 8 (see the module docstring)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.cli.train_rl import default_gemma_config, default_qwen3_config
+    from multimodal_embedding_tpu_torch.rl.policy import get_arch
+
+    dev = torch.device("cuda")
+    card = card_line()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cons = _qwen3_consistency(dev)
+    print(f"[phase8] Qwen3-14B full width, {CONSISTENCY_LAYERS} layers, kernels bf16 vs plain f32: "
+          f"{json.dumps(cons)}")
+    serving = _qwen3_serving(dev)
+    print(f"[phase8] Qwen3-14B 40 layers bf16, rl.verify.evaluate_merged ({VERIFY_TICKETS} tickets, batch "
+          f"{VERIFY_BATCH}, prompts {VERIFY_PROMPT_LEN}, {VERIFY_NEW} new tokens): {json.dumps(serving)}; "
+          f"card {card}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {}
+    for arch, cfg in (("qwen3", default_qwen3_config("small")), ("gemma", default_gemma_config("small"))):
+        path = OUT_DIR / f"{arch}_small_adapters.npz"
+        _write_adapters(get_arch(arch).init(cfg, seed=0, device=dev), path, seed=3)
+        torch.cuda.empty_cache()
+        stats, counts = _verify_cli(arch, path)
+        paths[arch] = counts
+        print(f"[phase8] verify_rl --arch {arch} {' '.join(VERIFY_CLI_ARGS)}: {stats}; launches {json.dumps(counts)}")
+    cli_counts = {n: paths["qwen3"][n] + paths["gemma"][n] for n in paths["qwen3"]}
+    for k in kernels:
+        k["launches_by_path"]["qwen3-14b verify"] = (
+            sum(serving["attention_launches_per_generate"]) if k["name"] == "fused_attention" else 0)
+        k["launches_by_path"]["verify_rl CLI"] = cli_counts.get(k["name"], 0)
+    print(f"[phase8] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1591,6 +1913,7 @@ def main() -> int:
     phase_other_models_consistency()
     phase_converted(kernels)
     phase_workload_a(kernels)
+    phase_workload_b(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

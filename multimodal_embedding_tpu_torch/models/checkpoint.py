@@ -59,10 +59,11 @@ def _config_types() -> dict[str, type]:
     from .colpali import ColPaliConfig
     from .gemma import GemmaConfig
     from .jina import Eva02Config, JinaBertConfig, JinaClipConfig
+    from .qwen3 import Qwen3Config
     from .towers import DualEncoderConfig, TextConfig, VisionConfig
 
     types = (ColPaliConfig, GemmaConfig, DualEncoderConfig, TextConfig, VisionConfig,
-             Eva02Config, JinaBertConfig, JinaClipConfig)
+             Eva02Config, JinaBertConfig, JinaClipConfig, Qwen3Config)
     return {t.__name__: t for t in types}
 
 

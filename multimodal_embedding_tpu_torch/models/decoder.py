@@ -1,0 +1,134 @@
+"""The decoder LMs' shared steps: a layer, the forward, and generation's
+prefill and decode over a static KV cache.
+
+The JAX package writes these steps once per model: ``gemma_apply``,
+``gemma_lm_logits``, ``gemma_prefill`` and ``gemma_decode_step``
+(``models/gemma.py:102-224``), and ``qwen3_apply``, ``qwen3_lm_logits``,
+``qwen3_prefill`` and ``qwen3_decode_step`` (``models/qwen3.py:103-208``).
+They differ only in the embedding, the RMSNorm, the q/k/v projections and the
+MLP, which each model's module gives (``models/gemma.py``,
+``models/qwen3.py``); Gemma and Qwen3 inherit the rest from here.
+
+The KV cache is ``{"k", "v"}``, each ``[L, B, KVH, cache_len, Dh]`` in the
+model dtype: the JAX ``[L, B, cache_len, KVH, Dh]`` with the token and head
+axes swapped, so a decode step reads each head's keys as one contiguous
+``[cache_len, Dh]`` block. The prefill allocates it, zeros past the prompt
+(``jnp.pad``), and each decode step writes its token's slot in place where
+JAX returns a new cache (``dynamic_update_slice``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from .decoder_attn import decode_attention, grouped_attention
+from .layers import matmul_f32
+
+
+class DecoderLayer(nn.Module):
+    """One pre-norm layer: ``ln1``, ``attn.{q,k,v,o,...}``, ``ln2``,
+    ``mlp.{...}``. A subclass gives ``norm`` (its RMSNorm, ``(w, x, eps)``),
+    ``qkv`` (projections, any head norm and rope: q [B, T, H, Dh], k and v
+    [B, T, KVH, Dh]) and ``mlp_out``."""
+
+    cfg: Any
+    norm: Any
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        raise NotImplementedError
+
+    def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, h, positions, key_mask, causal: bool):
+        """[B, T, D] -> (h, k, v): the layer's output and its rope'd keys and
+        values, which the prefill caches."""
+        eps = self.cfg.rms_eps
+        q, k, v = self.qkv(self.norm(self.ln1, h, eps), positions)
+        out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal,
+                                sm_scale=1.0 / math.sqrt(self.cfg.head_dim))
+        h = h + out @ self.attn["o"]
+        return h + self.mlp_out(self.norm(self.ln2, h, eps)), k, v
+
+    def decode(self, h, positions, k_cache, v_cache, write_idx: int, cache_valid) -> torch.Tensor:
+        """One token a row, h [B, 1, D]: writes its k and v at cache slot
+        ``write_idx`` of this layer's caches [B, KVH, S, Dh], then attends
+        over the slots ``cache_valid`` [B, S] marks."""
+        eps = self.cfg.rms_eps
+        q, k, v = self.qkv(self.norm(self.ln1, h, eps), positions)
+        k_cache[:, :, write_idx] = k[:, 0]
+        v_cache[:, :, write_idx] = v[:, 0]
+        h = h + decode_attention(q, k_cache, v_cache, cache_valid) @ self.attn["o"]
+        return h + self.mlp_out(self.norm(self.ln2, h, eps))
+
+
+class DecoderLM(nn.Module):
+    """``embed`` [V, D], ``layers.<i>`` (:class:`DecoderLayer`s),
+    ``final_norm``. A subclass gives ``norm``, ``embed_tokens`` and
+    ``head`` (the LM head, [D, V])."""
+
+    cfg: Any
+    norm: Any
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def head(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def hidden_states(self, x: torch.Tensor, attn_mask: torch.Tensor | None, causal: bool) -> torch.Tensor:
+        """inputs_embeds [B, T, D] -> final hidden [B, T, D]. attn_mask [B, T]
+        (nonzero = valid) is a key mask with positions cumsum(mask) - 1 (left
+        padding); without one every key is valid."""
+        b, t, _ = x.shape
+        if attn_mask is None:
+            positions = torch.arange(t, device=x.device).expand(b, t)
+            key_mask = None
+        else:
+            positions = torch.cumsum(attn_mask.long(), dim=-1) - 1
+            key_mask = attn_mask > 0
+        for layer in self.layers:
+            x = layer(x, positions, key_mask, causal)[0]
+        return self.norm(self.final_norm, x, self.cfg.rms_eps)
+
+    def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """hidden [B, T, D] -> logits [B, T, V] in f32: the head in the
+        hidden dtype, the product accumulated and kept in f32."""
+        return matmul_f32(hidden, self.head())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def prefill(self, input_ids: torch.Tensor, attn_mask: torch.Tensor, cache_len: int):
+        """Causal prefill of left-padded prompts ids [B, T] with mask [B, T]
+        -> (final hidden [B, T, D], KV cache with slots 0..T-1 filled)."""
+        cfg = self.cfg
+        b, t = input_ids.shape
+        positions = torch.cumsum(attn_mask.long(), dim=-1) - 1
+        key_mask = attn_mask > 0
+        x = self.embed_tokens(input_ids)
+        shape = (cfg.layers, b, cfg.kv_heads, cache_len, cfg.head_dim)
+        kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+        for i, layer in enumerate(self.layers):
+            x, k, v = layer(x, positions, key_mask, True)
+            kv["k"][i, :, :, :t] = k.transpose(1, 2)
+            kv["v"][i, :, :, :t] = v.transpose(1, 2)
+        return self.norm(self.final_norm, x, cfg.rms_eps), kv
+
+    def decode_step(self, kv: dict, token: torch.Tensor, pos: torch.Tensor, write_idx: int,
+                    cache_valid: torch.Tensor):
+        """One autoregressive step: token [B] at rope position pos [B],
+        written at cache slot ``write_idx``, attending over the slots
+        ``cache_valid`` [B, cache_len] marks (this one included). Returns
+        (logits [B, V] f32, kv), the cache updated in place."""
+        x = self.embed_tokens(token[:, None])
+        positions = pos[:, None]
+        for i, layer in enumerate(self.layers):
+            x = layer.decode(x, positions, kv["k"][i], kv["v"][i], write_idx, cache_valid)
+        x = self.norm(self.final_norm, x, self.cfg.rms_eps)
+        return self.lm_logits(x)[:, 0], kv

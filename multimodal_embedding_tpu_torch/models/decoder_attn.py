@@ -1,9 +1,11 @@
-"""Grouped-query self-attention for the decoder LMs (Gemma).
+"""Grouped-query attention for the decoder LMs (Gemma, Qwen3).
 
-Counterpart of ``multimodal_embedding_tpu/models/decoder_attn.py:
-grouped_attention``: already projected and rope'd q [B, T, H, Dh] and k, v
-[B, T, KVH, Dh] -> [B, T, H*Dh] in q's dtype, over a key mask [B, T] (True =
-attend; None = every key) and a static causal flag.
+:func:`grouped_attention` is the counterpart of
+``multimodal_embedding_tpu/models/decoder_attn.py:grouped_attention``:
+already projected and rope'd q [B, T, H, Dh] and k, v [B, T, KVH, Dh] ->
+[B, T, H*Dh] in q's dtype, over a key mask [B, T] (True = attend; None =
+every key) and a static causal flag. The encoders and the generation prefill
+take it.
 
 The implementation follows ``layers.set_attention_impl``:
 - "pallas" ("auto" on the card): the fused attention kernel
@@ -14,9 +16,15 @@ The implementation follows ``layers.set_attention_impl``:
   model-dtype) logits and finite ``-1e30`` masking, as the JAX function's
   XLA branch, not the ``-inf`` of ``layers.attention_core``.
 The sequence-parallel branch is not yet ported.
+
+:func:`decode_attention` is one generation step's attention over a KV cache,
+the einsum of the JAX decode steps (``models/qwen3.py:192-198``,
+``models/gemma.py:210-215``), which no Pallas kernel runs: plain PyTorch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -66,3 +74,33 @@ def grouped_attention(
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", attn.float(), v.float())
     return out.to(q.dtype).reshape(b, t, heads * dh)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [N, M, K] @ b [N, K, P] accumulated and returned in f32; on the card
+    a bf16 product writes f32 straight from cuBLAS (no f32 copy of b)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_valid: torch.Tensor,
+) -> torch.Tensor:
+    """One query token a row against a KV cache: q [B, 1, H, Dh], caches
+    [B, KVH, S, Dh] (KVH | H), cache_valid [B, S] (True = attend) -> [B, 1,
+    H*Dh] in q's dtype. As the JAX decode steps: f32 logits divided by
+    sqrt(Dh), finite ``-1e30`` masking, f32 softmax cast to q's dtype, then
+    an f32-accumulated PV rounded once to q's dtype."""
+    b, _, heads, dh = q.shape
+    kv_heads, s = k_cache.shape[1], k_cache.shape[2]
+    g = heads // kv_heads  # query heads per kv head: head = kv head * g + j
+    qh = q.reshape(b * kv_heads, g, dh)
+    logits = _bmm_f32(qh, k_cache.reshape(b * kv_heads, s, dh).transpose(1, 2)) / math.sqrt(dh)
+    logits = logits.view(b, kv_heads, g, s).masked_fill(~cache_valid[:, None, None, :], NEG_INF)
+    attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.bmm(attn.view(b * kv_heads, g, s), v_cache.reshape(b * kv_heads, s, dh))
+    return out.reshape(b, 1, heads * dh)

@@ -1,9 +1,11 @@
 """Gemma decoder, the language tower inside ColPali's PaliGemma backbone.
 
-Counterpart of ``multimodal_embedding_tpu/models/gemma.py`` for the
-embedding path (``gemma_apply``, ``gemma_embed``); generation
-(``gemma_prefill``, ``gemma_decode_step``, ``gemma_lm_logits``) is not yet
-ported. The HF ``GemmaModel`` semantics, as in the JAX package:
+Counterpart of ``multimodal_embedding_tpu/models/gemma.py``: the embedding
+path (``gemma_apply`` as ``Gemma.forward``, ``gemma_embed`` as
+``embed_tokens``) and generation (``gemma_lm_logits``, ``gemma_prefill``,
+``gemma_decode_step`` as ``lm_logits``, ``prefill``, ``decode_step``, from
+``models/decoder.py``). The HF ``GemmaModel`` semantics, as in the JAX
+package:
 
 - token embeddings scaled by sqrt(dim), rounded to the embedding dtype;
 - RMSNorm with a (1 + weight) gain and f32 statistics;
@@ -11,7 +13,8 @@ ported. The HF ``GemmaModel`` semantics, as in the JAX package:
   positions cumsum(mask) - 1 (left padding supported);
 - multi-query attention (``models/decoder_attn.py``), scale 1/sqrt(head_dim),
   over a key mask and an optional causal flag;
-- a GeGLU MLP with tanh-approximated GELU in f32.
+- a GeGLU MLP with tanh-approximated GELU in f32;
+- a tied LM head (``embed`` transposed), logits accumulated and kept in f32.
 
 Weights keep the JAX layouts (a projection is ``[d_in, d_out]``), with the
 ``[L, ...]``-stacked layers unrolled into ``layers.<i>``. In bf16 the q/k/v,
@@ -27,7 +30,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .decoder_attn import grouped_attention
+from .decoder import DecoderLayer, DecoderLM
 
 
 @dataclass(frozen=True)
@@ -70,9 +73,11 @@ def _zeros(dim: int, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.zeros(dim, device=device, dtype=dtype), requires_grad=False)
 
 
-class GemmaLayer(nn.Module):
+class GemmaLayer(DecoderLayer):
     """One decoder layer: ``ln1``, ``attn.{q,k,v,o}``, ``ln2``,
     ``mlp.{gate,up,down}`` (the JAX tree's names)."""
+
+    norm = staticmethod(rms_norm)
 
     def __init__(self, cfg: GemmaConfig, *, gen: torch.Generator, device, dtype):
         super().__init__()
@@ -93,32 +98,26 @@ class GemmaLayer(nn.Module):
             "down": _normal((cfg.mlp_dim, cfg.dim), s, gen, device, dtype),
         })
 
-    def _attn(self, x, positions, key_mask, causal: bool) -> torch.Tensor:
+    def qkv(self, x, positions):
         cfg, p = self.cfg, self.attn
         b, t, _ = x.shape
         q = (x @ p["q"]).reshape(b, t, cfg.heads, cfg.head_dim)
         k = (x @ p["k"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
         v = (x @ p["v"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-        q = _rope(q, positions, cfg.rope_theta)
-        k = _rope(k, positions, cfg.rope_theta)
-        out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal, sm_scale=1.0 / math.sqrt(cfg.head_dim))
-        return out @ p["o"]
+        return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
         p = self.mlp
         h = torch.nn.functional.gelu((x @ p["gate"]).float(), approximate="tanh") * (x @ p["up"]).float()
         return h.to(x.dtype) @ p["down"]
 
-    def forward(self, h, positions, key_mask, causal: bool = False) -> torch.Tensor:
-        eps = self.cfg.rms_eps
-        h = h + self._attn(rms_norm(self.ln1, h, eps), positions, key_mask, causal)
-        return h + self._mlp(rms_norm(self.ln2, h, eps))
 
-
-class Gemma(nn.Module):
+class Gemma(DecoderLM):
     """Token embedding table ``embed`` [V, D], ``layers.<i>``, ``final_norm``."""
 
-    def __init__(self, cfg: GemmaConfig, *, gen: torch.Generator, device, dtype):
+    norm = staticmethod(rms_norm)
+
+    def __init__(self, cfg: GemmaConfig, *, gen: torch.Generator | None, device, dtype):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList(GemmaLayer(cfg, gen=gen, device=device, dtype=dtype) for _ in range(cfg.layers))
@@ -131,19 +130,12 @@ class Gemma(nn.Module):
         emb = self.embed[input_ids.long()]
         return emb * torch.tensor(math.sqrt(self.cfg.dim), dtype=emb.dtype, device=emb.device)
 
+    def head(self) -> torch.Tensor:
+        return self.embed.T
+
     def forward(self, inputs_embeds: torch.Tensor, attn_mask: torch.Tensor | None = None,
                 causal: bool = False) -> torch.Tensor:
         """``gemma_apply``: inputs_embeds [B, T, D] -> final hidden [B, T, D].
         attn_mask [B, T] (nonzero = valid) is a key mask; without one every
         token attends to every token (PaliGemma's prefix-LM inference mask)."""
-        b, t, _ = inputs_embeds.shape
-        if attn_mask is None:
-            positions = torch.arange(t, device=inputs_embeds.device).expand(b, t)
-            key_mask = None
-        else:
-            positions = torch.cumsum(attn_mask.long(), dim=-1) - 1
-            key_mask = attn_mask > 0
-        x = inputs_embeds
-        for layer in self.layers:
-            x = layer(x, positions, key_mask, causal)
-        return rms_norm(self.final_norm, x, self.cfg.rms_eps)
+        return self.hidden_states(inputs_embeds, attn_mask, causal)

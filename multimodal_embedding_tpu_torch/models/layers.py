@@ -29,6 +29,19 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] accumulated and returned in f32 (the JAX
+    package's ``jnp.dot(..., preferred_element_type=jnp.float32)``), with no
+    f32 copy of w: on the card a bf16 product writes f32 straight from cuBLAS
+    (``torch.mm(..., out_dtype=torch.float32)``)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda and x.dtype != torch.float32:
+        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+    else:
+        y = x2.float() @ w.float()
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with f32 statistics (population variance), scale and shift
     applied in f32, one rounding to x's dtype (``F.layer_norm`` computes in

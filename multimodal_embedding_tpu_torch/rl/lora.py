@@ -1,0 +1,73 @@
+"""LoRA adapters for the decoder LMs, as serving needs them: an init and the
+merge (``merge_and_unload``).
+
+Counterpart of ``multimodal_embedding_tpu/rl/lora.py`` (``LoraConfig`` :23,
+``lora_init`` :29, ``lora_merge`` :44, ``apply_lora`` :59). Adapters are a
+tree ``{target: {"a": [L, d_in, r], "b": [L, r, d_out]}}`` for the
+projections ``layers.<i>.attn.{q,k,v,o}`` (torch tensors, or numpy arrays as
+an adapters ``.npz`` holds them). The merge folds ``(a @ b) * alpha / r``,
+computed in f32, cast to the weight's dtype and added in that dtype, into a
+new module that shares every other tensor with the base. Training the
+adapters (the gradient through ``apply_lora``) is not yet ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..models.decoder import DecoderLM
+
+TARGETS = ("q", "k", "v", "o")
+
+
+@dataclass(frozen=True)
+class LoraConfig:
+    rank: int = 16
+    alpha: int = 32
+    targets: tuple[str, ...] = TARGETS
+
+
+def lora_init(base: DecoderLM, cfg: LoraConfig, *, generator: torch.Generator, dtype=torch.float32) -> dict:
+    """Adapters for each target projection [d_in, d_out] of every layer:
+    a [L, d_in, r] normal / r, b [L, r, d_out] zeros (the merge starts as the
+    identity), on the base's device."""
+    adapters = {}
+    n_layers = len(base.layers)
+    for name in cfg.targets:
+        d_in, d_out = base.layers[0].attn[name].shape
+        a = torch.randn((n_layers, d_in, cfg.rank), generator=generator, device=base.device) * (1.0 / cfg.rank)
+        adapters[name] = {"a": a.to(dtype),
+                          "b": torch.zeros((n_layers, cfg.rank, d_out), device=base.device, dtype=dtype)}
+    return adapters
+
+
+def _f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+
+@torch.no_grad()
+def lora_merge(base: DecoderLM, adapters: dict, cfg: LoraConfig) -> DecoderLM:
+    """A module of the base's type and dtype with each adapter folded into its
+    projection; every other tensor is the base's own (no copy)."""
+    scale = cfg.alpha / cfg.rank
+    state = base.state_dict()
+    for name, ab in adapters.items():
+        a, b = _f32(ab["a"], base.device), _f32(ab["b"], base.device)
+        for i in range(len(base.layers)):
+            key = f"layers.{i}.attn.{name}"
+            w = state[key]
+            state[key] = w + ((a[i] @ b[i]) * scale).to(w.dtype)
+    merged = type(base)(base.cfg, gen=None, device="meta", dtype=base.embed.dtype)
+    merged.load_state_dict(state, strict=True, assign=True)
+    return merged
+
+
+# the merged view for the forward pass (JAX rl/lora.py:59)
+apply_lora = lora_merge
+# backwards-compatible name from when Gemma was the only decoder
+apply_lora_to_gemma = apply_lora

@@ -135,11 +135,17 @@ def test_colpali_and_jina_configs_roundtrip(tmp_path):
 
 
 def test_unported_config_type_is_named(tmp_path):
+    """A config type the port does not register is refused by name. Qwen3's
+    is registered since the Workload B slice: a JAX-written Qwen3-14B config
+    reads back equal."""
     from multimodal_embedding_tpu.models.qwen3 import QWEN3_14B
+    from multimodal_embedding_tpu.rl.lora import LoraConfig
 
     jckpt.save_params(tmp_path / "qwen.npz", {"x": np.zeros(2, np.float32)}, QWEN3_14B)
-    with pytest.raises(ValueError, match="Qwen3Config"):
-        tckpt.load_params(tmp_path / "qwen.npz")
+    assert tckpt.load_params(tmp_path / "qwen.npz")[1].__dict__ == QWEN3_14B.__dict__
+    jckpt.save_params(tmp_path / "lora.npz", {"x": np.zeros(2, np.float32)}, LoraConfig())
+    with pytest.raises(ValueError, match="LoraConfig"):
+        tckpt.load_params(tmp_path / "lora.npz")
 
 
 LOADERS = [("OpenAI-CLIP-L", "CLIPModel", _clip_hf), ("SigLIP-400M", "SiglipModel", _siglip_hf)]

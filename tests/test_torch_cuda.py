@@ -17,7 +17,10 @@ max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 of the plain row pass in the
 same dtype; the prologue's and LayerNorm's forwards equal with and without
 the autograd Function, and LayerNorm on misaligned scale and bias views equal
 to aligned copies; stacked-QKV attention bit-equal to the attention kernel on
-contiguous copies of the three slices.
+contiguous copies of the three slices. The decoders: f32-output products of
+bf16 operands within max|d|/max|plain| 1e-5 of the product of f32 copies, and
+the debug Qwen3 and Gemma in f32 on the card (prefill through the attention
+kernel) within 1e-4 of the CPU's plain path, with equal greedy tokens.
 """
 
 import numpy as np
@@ -489,3 +492,51 @@ def test_layer_norm_gradient_recomputes_through_plain_version(dev):
         grads.append([t.grad for t in xs])
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_f32_products_of_bf16_operands_on_the_card(dev):
+    """The decoders' f32-output products (LM head, Qwen3's gate and up, the
+    decode step's logits) take bf16 operands with no f32 copy and match the
+    product of f32 copies to f32 rounding (bf16 products are exact in f32)."""
+    from multimodal_embedding_tpu_torch.models.decoder_attn import _bmm_f32
+    from multimodal_embedding_tpu_torch.models.layers import matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(3, 5, 256, generator=g, device=dev).bfloat16()
+    w = torch.randn(256, 1000, generator=g, device=dev).bfloat16()
+    table = torch.randn(1000, 256, generator=g, device=dev).bfloat16()
+    for weight in (w, table.T):  # untied head, and a tied head's transposed view
+        got = matmul_f32(x, weight)
+        assert got.dtype == torch.float32 and got.shape == (3, 5, 1000)
+        assert _rel(got, x.float() @ weight.float()) <= 1e-5
+    a = torch.randn(16, 5, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(16, 300, 128, generator=g, device=dev).bfloat16()
+    got = _bmm_f32(a, k.transpose(1, 2))
+    assert got.dtype == torch.float32 and _rel(got, a.float() @ k.float().transpose(1, 2)) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen3", "gemma"])
+def test_decoder_generation_on_the_card_matches_the_cpu(dev, arch):
+    """The debug decoders of ``cli/train_rl.py`` in f32: the prefill (through
+    the attention kernel, one launch a layer) matches the CPU's plain path at
+    valid positions within 1e-4, and greedy tokens are equal."""
+    from multimodal_embedding_tpu_torch.cli.train_rl import default_gemma_config, default_qwen3_config
+    from multimodal_embedding_tpu_torch.rl import tokenizer as tok
+    from multimodal_embedding_tpu_torch.rl.generate import generate
+    from multimodal_embedding_tpu_torch.rl.policy import get_arch
+
+    cfg = default_qwen3_config("debug") if arch == "qwen3" else default_gemma_config("debug")
+    cpu = get_arch(arch).init(cfg, seed=0, device="cpu")
+    card = get_arch(arch).init(cfg, seed=0, device="meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()}, assign=True)
+    ids, mask = tok.pad_left([tok.encode(t) for t in ("where is my package", "hi", "refund my card please")])
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    with torch.no_grad():
+        want, _ = cpu.prefill(ids, mask, ids.shape[1])
+        attention_cuda.launches = 0
+        got, _ = card.prefill(ids.to(dev), mask.to(dev), ids.shape[1])
+    assert attention_cuda.launches == cfg.layers
+    valid = mask.bool()
+    assert float((got.cpu()[valid] - want[valid]).abs().max()) <= 1e-4
+    toks, _ = generate(card, ids.to(dev), mask.to(dev), 8, greedy=True)
+    assert torch.equal(toks.cpu(), generate(cpu, ids, mask, 8, greedy=True)[0])
