@@ -12,7 +12,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
      main paths' shapes (OpenAI-CLIP-L, ColPali-v1.3 and the fused encoder
      layer's; the ViT-H and SigLIP-So400m towers, the MAP head's one probe
      row over 729 keys, and the four other models' preprocess recipes; the
-     left-padded causal prefills of Qwen3-14B and the small Qwen3; plus
+     left-padded causal prefills of Qwen3-14B and the small Qwen3, and
+     Qwen3-14B's GRPO forward over a group of 8 at 272 tokens, with the
+     attention Function's q/k/v grads there against plain f32 autograd; plus
      attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
      checked on its first 64 queries),
      with the tolerances stated below, and time both, the one
@@ -91,6 +93,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
      ``--model-size small --baseline --dataset-size 16`` with an adapters
      ``.npz`` the phase writes (the stats line parses, each rate in [0, 100],
      the attention kernel launched).
+  9. Workload B training (arch-random, bf16, seeded CUDA generators):
+     Qwen3-14B at full width cut to 4 layers, one GRPO ``loss_and_grads`` on
+     a rollout of a support ticket with advantages +-1, the kernels in bf16
+     against the plain attention path on the f32 weights (each adapter
+     gradient's cosine >= 0.99; loss, pg and kl within 5%); then all 40 layers
+     through ``GRPOTrainer.train`` (4 tickets, a group of 8, 48 new tokens,
+     grad-accum 2: 2 AdamW steps; ``b`` drawn at std 0.02, so the KL term
+     moves the adapters under the random policy's flat rewards): the adapters
+     moved, loss and kl finite, 40 attention launches in each prompt's
+     rollout prefill, reference pass and loss pass, each part's seconds and
+     the peak device memory; and ``cli/train_rl.py --model-size small
+     --format-pretrain 20 --save-base`` then ``cli/verify_rl.py`` on its base
+     and adapters, for Qwen3 and Gemma (the stats parse, each rate in [0, 100],
+     the attention kernel launched in both).
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
@@ -131,6 +147,11 @@ ATTN_TOL_F32 = 1e-5
 # the absolute limit alone need not see where outputs are small.
 ATTN_REL_TOL_BF16 = 1e-2
 ATTN_REL_TOL_F32 = 1e-5
+# The attention Function's q/k/v grads (bf16, recomputed through the plain
+# version) against autograd of the plain version in f32, max|d|/max|plain| and
+# mean|d|/mean|plain|: rounding p, dP and the grads to bf16 gives about 0.5%
+# and 0.3% at [2, 272, 10x128] on the CPU.
+ATTN_GRAD_REL_TOL_BF16 = 2e-2
 PRE_MIN_BIT_EQUAL = 0.999  # fraction of output elements bit-equal to the plain version
 # MaxSim, max|d|/max|plain| against the f32 plain version on the same inputs:
 # bf16 products are exact in f32, so only the order of the f32 sums differs.
@@ -331,6 +352,54 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     case = {"case": name, "shape": [b, h, kvh, t, dh], "queries": tq, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
+    print(f"[attention] {json.dumps(case)}")
+    return case
+
+
+def _attention_grad_case(name, *, b, h, kvh, t, dh, rng):
+    """The attention Function's backward at a training shape (bf16, packed,
+    causal, left-padded key mask): its q, k and v grads against autograd of
+    the plain version in f32 on the same inputs and output grad, with
+    max|d|/max|plain| and mean|d|/mean|plain| each within
+    ``ATTN_GRAD_REL_TOL_BF16``; then the forward and backward's time through
+    the Function beside the plain version's autograd in bf16."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+
+    def rand(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, bf16)
+
+    q, k, v, g = rand((b, t, h * dh)), rand((b, t, kvh * dh)), rand((b, t, kvh * dh)), rand((b, t, h * dh))
+    lengths = rng.integers(t // 2, t + 1, size=b)
+    km = torch.from_numpy((np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)).to(dev)
+    scale = 1.0 / math.sqrt(dh)
+
+    def kernel_grads():
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = attention_cuda.fused_attention(*qkv, km, causal=True, layout="packed", num_heads=h, num_kv_heads=kvh)
+        return torch.autograd.grad(out, qkv, g)
+
+    def plain_grads(dtype):
+        qkv = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+        out = attention_cuda._plain(*qkv, km, True, scale, "packed", h, kvh)
+        return torch.autograd.grad(out, qkv, g.to(dtype))
+
+    got, want = kernel_grads(), plain_grads(torch.float32)
+    errs = {}
+    for x, a, w in zip("qkv", got, want):
+        d = (a.float() - w).abs()
+        max_rel, mean_rel = float(d.max()) / float(w.abs().max()), float(d.mean()) / float(w.abs().mean())
+        require(a.dtype == bf16 and math.isfinite(max_rel) and max_rel <= ATTN_GRAD_REL_TOL_BF16
+                and mean_rel <= ATTN_GRAD_REL_TOL_BF16,
+                f"attention grad {name}: d{x} relative err max {max_rel}, mean {mean_rel} > {ATTN_GRAD_REL_TOL_BF16}")
+        errs[f"d{x}"] = [max_rel, mean_rel]
+    case = {"case": name, "shape": [b, h, kvh, t, dh], "dtype": "bfloat16", "grad_rel_err": errs,
+            "fwd_bwd_ms": cuda_time_ms(kernel_grads), "plain_fwd_bwd_ms": cuda_time_ms(lambda: plain_grads(bf16))}
     print(f"[attention] {json.dumps(case)}")
     return case
 
@@ -646,7 +715,18 @@ def attention_cases() -> list[tuple[str, dict]]:
             full_mask_rows=True, left_padded=True)),
         ("qwen3-small prefill", dict(b=8, h=8, kvh=4, t=256, dh=64, dtype=torch.float32, causal=True, masked=True,
                                      layout="packed", full_mask_rows=True, left_padded=True)),
+        # Workload B's training (phase 9): GRPO's forwards over a group of 8,
+        # a support ticket bucketed to 224 tokens plus 48 completion tokens
+        _grpo_attention_case(),
     ]
+
+
+def _grpo_attention_case():
+    import torch
+
+    return ("qwen3-14b grpo packed gqa causal+mask, left-padded", dict(
+        b=8, h=40, kvh=8, t=272, dh=128, dtype=torch.bfloat16, causal=True, masked=True, layout="packed",
+        full_mask_rows=True, left_padded=True))
 
 
 # the --layer-impl fused encoder layer: ViT-L b64 (M 64*577), CLIP text b128
@@ -754,6 +834,9 @@ def phase_kernels() -> list[dict]:
     rng = np.random.default_rng(0)
     bf16 = torch.bfloat16
     attn = [_attention_case(name, **kw, rng=rng) for name, kw in attention_cases()]
+    grpo = _grpo_attention_case()[1]
+    attn.append(_attention_grad_case("qwen3-14b grpo backward", b=grpo["b"], h=grpo["h"], kvh=grpo["kvh"],
+                                     t=grpo["t"], dh=grpo["dh"], rng=rng))
     pre = [_preprocess_case(name, **kw, rng=rng) for name, kw in preprocess_cases()]
     maxsim = [_maxsim_case(name, **kw, rng=rng) for name, kw in maxsim_cases()]
     torch.cuda.empty_cache()
@@ -1825,8 +1908,9 @@ def _qwen3_serving(dev) -> dict:
     return out
 
 
-def _verify_cli(arch: str, adapters_path: Path) -> tuple[dict, dict]:
-    """``cli/verify_rl.py`` in-process: (its stats line, the launch counts)."""
+def _verify_cli(arch: str, adapters_path: Path, base_params: Path | None = None) -> tuple[dict, dict]:
+    """``cli/verify_rl.py`` in-process, on a random init at ``--model-size
+    small`` or on ``base_params``: (its stats line, the launch counts)."""
     import ast
     import contextlib
     import io
@@ -1838,7 +1922,8 @@ def _verify_cli(arch: str, adapters_path: Path) -> tuple[dict, dict]:
         setattr(mod, attr, 0)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = verify_rl.main(["--arch", arch, *VERIFY_CLI_ARGS, "--adapters", str(adapters_path)])
+        rc = verify_rl.main(["--arch", arch, *VERIFY_CLI_ARGS, "--adapters", str(adapters_path),
+                             *(["--base-params", str(base_params)] if base_params else [])])
     counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
     text = buf.getvalue()
     require(rc == 0, f"verify_rl --arch {arch} exited {rc}: {text[-2000:]}")
@@ -1884,6 +1969,217 @@ def phase_workload_b(kernels: list[dict]) -> None:
     print(f"[phase8] {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 9: Workload B training -----------------------------------------------------
+
+# the reference's GRPO setup (lr 1e-5, KL beta 0.04, LoRA rank 16 alpha 32 on
+# q/k/v/o: GRPOConfig's defaults), a group of 8 and 48 new tokens; 4 support
+# tickets at grad-accum 2 make 2 optimizer steps
+GRPO_PROMPTS, GRPO_ACCUM = 4, 2
+# Qwen3-14B at full width cut to 4 layers, kernels in bf16 against the plain
+# attention path on the f32 weights: each adapter gradient's cosine, and the
+# relative difference of loss, pg and kl
+GRPO_GRAD_COSINE_MIN = 0.99
+GRPO_LOSS_REL_TOL = 5e-2
+TRAIN_CLI_ARGS = ["--model-size", "small", "--format-pretrain", "20", "--dataset-size", "8", "--epochs", "1",
+                  "--grad-accum", "2"]
+
+
+def _random_b(trainer, seed: int) -> None:
+    """Draw every adapter's ``b`` at std 0.02 in place (the optimizer keeps
+    the same tensors). ``lora_init``'s ``b`` = 0 makes the policy the base, and
+    a random-weight policy's rewards are flat, so the gradient would be exactly
+    zero: with ``b`` drawn, the KL term carries a gradient."""
+    import torch
+
+    gen = torch.Generator(device=trainer.base.device).manual_seed(seed)
+    with torch.no_grad():
+        for ab in trainer.adapters.values():
+            ab["b"].copy_(torch.randn(ab["b"].shape, generator=gen, device=trainer.base.device) * 0.02)
+
+
+def _grpo_consistency(dev) -> dict:
+    """QWEN3_14B at full width cut to 4 layers: one ``loss_and_grads`` on a
+    rollout of one support ticket (a group of 8, 48 tokens) with advantages
+    +-1, through the kernels in bf16 against the plain attention path on the
+    f32 weights, the same adapters (``b`` drawn) and each side's own
+    ``ref_logps``."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+    from multimodal_embedding_tpu_torch.rl import grpo
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
+    model = Qwen3(cfg, gen=torch.Generator(device=dev).manual_seed(4), device=dev, dtype=torch.bfloat16)
+    model32 = copy.deepcopy(model).float()
+    trainers = {side: grpo.GRPOTrainer(m, support_ticket_reward, grpo.GRPOConfig())
+                for side, m in (("kernels_bf16", model), ("plain_f32", model32))}
+    trainer = trainers["kernels_bf16"]
+    _random_b(trainer, seed=5)
+    prompt = generate_support_tickets(1, seed=44)[0]["prompt"]
+    p_ids, p_mask, comps = (torch.from_numpy(x).to(dev) for x in trainer.rollout(prompt)[:3])
+    comp_mask = grpo.completion_token_mask(comps)
+    adv = torch.tensor([1.0, -1.0] * 4, device=dev)
+    out = {"layers": CONSISTENCY_LAYERS, "batch": int(p_ids.shape[0]), "prompt_tokens": int(p_ids.shape[1]),
+           "completion_tokens": int(comp_mask.sum())}
+    runs = {}
+    for side, tr in trainers.items():
+        layers.set_attention_impl("auto" if side == "kernels_bf16" else "xla")
+        try:
+            attention_cuda.launches = 0
+            with torch.no_grad():
+                ref = grpo._completion_logps(tr.base, p_ids, p_mask, comps)
+            (loss, (pg, kl)), grads = tr.loss_and_grads(trainer.adapters, p_ids, p_mask, comps, comp_mask, adv, ref)
+            runs[side] = (float(loss), float(pg), float(kl), grads, attention_cuda.launches)
+        finally:
+            layers.set_attention_impl("auto")
+    (lk, pk, kk, gk, nk), (lp, pp, kp, gp, np_) = runs["kernels_bf16"], runs["plain_f32"]
+    require(nk == 2 * CONSISTENCY_LAYERS and np_ == 0,
+            f"attention launches: kernels {nk} (want {2 * CONSISTENCY_LAYERS}: ref and loss passes), plain {np_}")
+    rel = {k: abs(a - b) / max(abs(b), 1e-30) for k, a, b in (("loss", lk, lp), ("pg", pk, pp), ("kl", kk, kp))}
+    cos = {f"{n}.{p}": float(torch.nn.functional.cosine_similarity(
+        gk[n][p].double().flatten(), gp[n][p].double().flatten(), dim=0)) for n in gk for p in ("a", "b")}
+    out.update(loss=[lk, lp], pg=[pk, pp], kl=[kk, kp], rel_diff=rel, grad_cosine=cos,
+               grad_cosine_min=min(cos.values()))
+    require(all(math.isfinite(x) for x in (lk, pk, kk)) and kk > 0, f"GRPO loss terms {out}")
+    require(min(cos.values()) >= GRPO_GRAD_COSINE_MIN,
+            f"Qwen3-14B 4-layer GRPO gradient cosine {cos} < {GRPO_GRAD_COSINE_MIN}")
+    require(max(rel.values()) <= GRPO_LOSS_REL_TOL, f"Qwen3-14B 4-layer GRPO loss terms {rel} > {GRPO_LOSS_REL_TOL}")
+    del model, model32, trainers, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grpo_training(dev) -> dict:
+    """QWEN3_14B at full depth in bf16: ``GRPOTrainer.train`` on
+    ``GRPO_PROMPTS`` support tickets at ``grad_accum`` ``GRPO_ACCUM``, each
+    step's parts timed and its attention launches counted apart."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+    from multimodal_embedding_tpu_torch.rl import grpo
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Qwen3(QWEN3_14B, gen=torch.Generator(device=dev).manual_seed(6), device=dev, dtype=torch.bfloat16)
+    cfg = grpo.GRPOConfig(group_size=8, epochs=1, grad_accum=GRPO_ACCUM, max_new_tokens=48)
+    trainer = grpo.GRPOTrainer(model, support_ticket_reward, cfg)
+    _random_b(trainer, seed=7)
+    before = {n: {p: x.detach().clone() for p, x in ab.items()} for n, ab in trainer.adapters.items()}
+    parts: list[dict] = []
+    completion_logps = grpo._completion_logps
+
+    def timed(part, fn):
+        def run(*a, **kw):
+            if part == "rollout":
+                parts.append({})
+            torch.cuda.synchronize()
+            a0, t0 = attention_cuda.launches, time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[-1][f"{part}_s"] = time.perf_counter() - t0
+            parts[-1][f"{part}_attention"] = attention_cuda.launches - a0
+            return out
+        return run
+
+    ref_pass = timed("ref", completion_logps)
+
+    def logps(*a, **kw):  # the ref pass runs without grad; the loss pass's forward is timed with its backward
+        return completion_logps(*a, **kw) if torch.is_grad_enabled() else ref_pass(*a, **kw)
+
+    trainer.rollout = timed("rollout", trainer.rollout)
+    trainer.loss_and_grads = timed("loss_fwd_bwd", trainer.loss_and_grads)
+    trainer._update = timed("optimizer", trainer._update)
+    grpo._completion_logps = logps
+    try:
+        attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        stats = trainer.train(generate_support_tickets(GRPO_PROMPTS, seed=45))
+        train_s = time.perf_counter() - t0
+        launches = attention_cuda.launches
+    finally:
+        grpo._completion_logps = completion_logps
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    moved = {f"{n}.{p}": float((x.detach() - before[n][p]).abs().max()) for n, ab in trainer.adapters.items()
+             for p, x in ab.items()}
+    steps = int(trainer.opt.state[trainer._params[0]]["step"])
+    L = QWEN3_14B.layers
+    out = {"train_s": train_s, "prompts": GRPO_PROMPTS, "optimizer_steps": steps, "per_prompt": parts,
+           "stats": stats, "adapter_max_move": moved, "attention_launches": launches,
+           "peak_memory_bytes": peak, "device_memory_bytes": total}
+    require(steps == GRPO_PROMPTS // GRPO_ACCUM and len(parts) == GRPO_PROMPTS
+            and sum("optimizer_s" in p for p in parts) == steps, f"GRPO steps {steps}, parts {parts}")
+    require(all(v > 0 for v in moved.values()), f"adapters did not move: {moved}")
+    require(np.isfinite(stats["loss"]).all() and np.isfinite(stats["kl"]).all(), f"GRPO stats {stats}")
+    require(all(p["rollout_attention"] == p["ref_attention"] == p["loss_fwd_bwd_attention"] == L for p in parts)
+            and launches == 3 * L * GRPO_PROMPTS,
+            f"attention launches per prompt {parts} (want {L} in each of rollout prefill, ref and loss passes)")
+    require(peak < total, f"peak device memory {peak} of {total}")
+    del model, trainer, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_then_verify_cli(arch: str) -> dict:
+    """``cli/train_rl.py`` in-process, then ``cli/verify_rl.py`` on the base
+    and adapters it saved: the training stats, the verify stats line and each
+    CLI's launch counts."""
+    from multimodal_embedding_tpu_torch.cli import train_rl
+
+    counters = _counters()
+    out_dir = OUT_DIR / f"train_rl_{arch}"
+    base = out_dir / "base.npz"
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    rc = train_rl.main(["--arch", arch, *TRAIN_CLI_ARGS, "--save-base", str(base), "--output-dir", str(out_dir)])
+    train_s = time.perf_counter() - t0
+    counts = {"train_rl": {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}}
+    require(rc == 0 and counts["train_rl"]["fused_attention"] > 0, f"train_rl --arch {arch}: rc {rc}, {counts}")
+    with np.load(out_dir / "training_stats.npz") as data:
+        stats = {k: data[k].tolist() for k in data.files}
+    require(sorted(stats) == ["adv_std", "kl", "loss", "mean_reward", "parse_rate"]
+            and all(len(v) == 8 and np.isfinite(v).all() for v in stats.values()), f"training stats {stats}")
+    verify, counts["verify_rl"] = _verify_cli(arch, out_dir / "lora_adapters.npz", base)
+    return {"train_s": train_s, "stats": stats, "verify": verify, "launches": counts}
+
+
+def phase_workload_b_training(kernels: list[dict]) -> None:
+    """Phase 9 (see the module docstring)."""
+    import torch
+
+    dev = torch.device("cuda")
+    card = card_line()
+    t_phase = time.perf_counter()
+    cons = _grpo_consistency(dev)
+    print(f"[phase9] Qwen3-14B full width, {CONSISTENCY_LAYERS} layers, one GRPO loss_and_grads, kernels bf16 vs "
+          f"plain f32: {json.dumps(cons)}")
+    training = _grpo_training(dev)
+    print(f"[phase9] Qwen3-14B 40 layers bf16, GRPOTrainer.train ({GRPO_PROMPTS} tickets, group 8, 48 new tokens, "
+          f"grad-accum {GRPO_ACCUM}): {json.dumps(training)}; card {card}")
+    clis = {}
+    for arch in ("qwen3", "gemma"):
+        clis[arch] = _train_then_verify_cli(arch)
+        torch.cuda.empty_cache()
+        print(f"[phase9] train_rl --arch {arch} {' '.join(TRAIN_CLI_ARGS)}, then verify_rl: {json.dumps(clis[arch])}")
+    for k in kernels:
+        attention = k["name"] == "fused_attention"
+        k["launches_by_path"]["qwen3-14b grpo"] = training["attention_launches"] if attention else 0
+        k["launches_by_path"]["train_rl CLI"] = sum(c["launches"]["train_rl"].get(k["name"], 0)
+                                                    for c in clis.values())
+    print(f"[phase9] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1914,6 +2210,7 @@ def main() -> int:
     phase_converted(kernels)
     phase_workload_a(kernels)
     phase_workload_b(kernels)
+    phase_workload_b_training(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -29,16 +29,44 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
+def _mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 [M, K] @ w [K, N] accumulated and returned in f32."""
+    if x2.is_cuda and x2.dtype != torch.float32:
+        return torch.mm(x2, w.to(x2.dtype), out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` with a derivative, which ``torch.mm(..., out_dtype=)`` lacks.
+    The output grad is rounded to x's dtype once; each input's grad is then
+    one product in that dtype (f32 accumulation), so no f32 copy of w is
+    made. w's grad only when w needs one."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        gx = g @ w.to(x2.dtype).T if ctx.needs_input_grad[0] else None
+        gw = (x2.T @ g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] accumulated and returned in f32 (the JAX
     package's ``jnp.dot(..., preferred_element_type=jnp.float32)``), with no
     f32 copy of w: on the card a bf16 product writes f32 straight from cuBLAS
-    (``torch.mm(..., out_dtype=torch.float32)``)."""
+    (``torch.mm(..., out_dtype=torch.float32)``), through :class:`_MatmulF32`
+    where autograd records it."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda and x.dtype != torch.float32:
-        y = torch.mm(x2, w.to(x.dtype), out_dtype=torch.float32)
+    if x.is_cuda and x.dtype != torch.float32 and torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _MatmulF32.apply(x2, w)
     else:
-        y = x2.float() @ w.float()
+        y = _mm_f32(x2, w)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

@@ -7,7 +7,8 @@ and Jina's ``blocks/<name>`` are ``[L, ...]``. The port's modules use the
 same names and layouts, with the stacks unrolled (``_UNROLLED``); so the
 carrier is a rename plus an unstack, and every parity test feeds both
 packages the same weights through it. Integer leaves (ColPali's
-``image_suffix_ids``) stay integers.
+``image_suffix_ids``) stay integers. ``params_to_jax`` carries a module's
+weights back into the JAX layout, which ``save_params`` writes.
 """
 
 from __future__ import annotations
@@ -57,6 +58,46 @@ def params_from_jax(tree: Mapping[str, Any], dtype=torch.float32, *, device) -> 
         for i in range(arr.shape[0]):
             put(f"{unrolled}.{i}.{rest}", arr[i])
     return state
+
+
+def _stack_name(prefix: str) -> str | None:
+    """The JAX name of the unrolled layer list ``prefix`` names
+    (``encoder.layers`` -> ``encoder``), or None."""
+    for jax_key, unrolled in sorted(_UNROLLED.items(), key=lambda kv: -len(kv[1])):
+        if prefix == unrolled or prefix.endswith("." + unrolled):
+            return prefix[: len(prefix) - len(unrolled)] + jax_key
+    return None
+
+
+def params_to_jax(module: nn.Module) -> dict:
+    """The inverse of :func:`params_from_jax`: ``module``'s state dict as a
+    JAX param tree of numpy arrays, each unrolled layer list restacked to
+    ``[L, ...]`` under its JAX name, for ``models/checkpoint.py:save_params``.
+    Floating leaves are f32 (numpy has no bf16, and f32 holds a bf16 weight
+    exactly); integer leaves keep their dtype."""
+    flat: dict[str, np.ndarray] = {}
+    stacks: dict[str, dict[int, np.ndarray]] = {}
+    for name, t in module.state_dict().items():
+        t = t.detach().cpu()
+        arr = (t.float() if t.is_floating_point() else t).numpy()
+        parts = name.split(".")
+        for j, part in enumerate(parts):
+            stack = _stack_name(".".join(parts[:j])) if part.isdigit() else None
+            if stack is not None:
+                stacks.setdefault(".".join([stack, *parts[j + 1 :]]), {})[int(part)] = arr
+                break
+        else:
+            flat[name] = arr
+    for name, layers in stacks.items():
+        flat[name] = np.stack([layers[i] for i in range(len(layers))])
+    tree: dict = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
 
 
 def load_tree(module: nn.Module, tree: Mapping[str, Any], dtype=torch.float32, *, device) -> nn.Module:

@@ -1,10 +1,12 @@
-"""Workload B: the RL stack's serving path on one NVIDIA GPU.
+"""Workload B: GRPO/LoRA RL fine-tuning and its verification on one NVIDIA
+GPU.
 
 Counterpart of ``multimodal_embedding_tpu/rl``: the decoder registry
-(``policy.py``), LoRA adapters and their merge (``lora.py``), KV-cache
-generation (``generate.py``), the verification harness (``verify.py``), and
-copies of the JAX-free reward functions, dataset generators and tokenizers.
-GRPO training and the format pretrain are not yet ported.
+(``policy.py``), LoRA adapters with their merge and their differentiable
+view (``lora.py``), KV-cache generation (``generate.py``), the GRPO trainer
+(``grpo.py``), the supervised format pretrain (``pretrain.py``), the
+verification harness (``verify.py``), and copies of the JAX-free reward
+functions, dataset generators and tokenizers.
 """
 
 from .lora import lora_init, lora_merge, apply_lora, apply_lora_to_gemma

@@ -1,14 +1,17 @@
-"""LoRA adapters for the decoder LMs, as serving needs them: an init and the
-merge (``merge_and_unload``).
+"""LoRA adapters for the decoder LMs: an init, the merge
+(``merge_and_unload``) that serving runs, and the merged view that training
+differentiates.
 
 Counterpart of ``multimodal_embedding_tpu/rl/lora.py`` (``LoraConfig`` :23,
 ``lora_init`` :29, ``lora_merge`` :44, ``apply_lora`` :59). Adapters are a
 tree ``{target: {"a": [L, d_in, r], "b": [L, r, d_out]}}`` for the
 projections ``layers.<i>.attn.{q,k,v,o}`` (torch tensors, or numpy arrays as
-an adapters ``.npz`` holds them). The merge folds ``(a @ b) * alpha / r``,
-computed in f32, cast to the weight's dtype and added in that dtype, into a
-new module that shares every other tensor with the base. Training the
-adapters (the gradient through ``apply_lora``) is not yet ported.
+an adapters ``.npz`` holds them). Both fold ``(a @ b) * alpha / r``, computed
+in f32, cast to the weight's dtype and added in that dtype. ``lora_merge``
+builds, without a graph, a new module that shares every other tensor with
+the base; ``apply_lora`` returns only the merged q/k/v/o tensors, which
+``torch.func.functional_call`` puts in the base's place for one forward, so
+the gradient reaches the adapters and the base stays frozen.
 """
 
 from __future__ import annotations
@@ -50,24 +53,31 @@ def _f32(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(device)
 
 
+def apply_lora(base: DecoderLM, adapters: dict, cfg: LoraConfig) -> dict[str, torch.Tensor]:
+    """The merged view for the forward pass: ``{"layers.<i>.attn.<target>":
+    W + ((a[i] @ b[i]) * alpha / r).to(W.dtype)}``, differentiable with
+    respect to adapters given as f32 tensors on the base's device, the base
+    weights constants. Run the base on it with
+    ``torch.func.functional_call(base, weights, args)``."""
+    scale = cfg.alpha / cfg.rank
+    weights = {}
+    for name, ab in adapters.items():
+        a, b = _f32(ab["a"], base.device), _f32(ab["b"], base.device)
+        for i, layer in enumerate(base.layers):
+            w = layer.attn[name]
+            weights[f"layers.{i}.attn.{name}"] = w + ((a[i] @ b[i]) * scale).to(w.dtype)
+    return weights
+
+
 @torch.no_grad()
 def lora_merge(base: DecoderLM, adapters: dict, cfg: LoraConfig) -> DecoderLM:
     """A module of the base's type and dtype with each adapter folded into its
     projection; every other tensor is the base's own (no copy)."""
-    scale = cfg.alpha / cfg.rank
-    state = base.state_dict()
-    for name, ab in adapters.items():
-        a, b = _f32(ab["a"], base.device), _f32(ab["b"], base.device)
-        for i in range(len(base.layers)):
-            key = f"layers.{i}.attn.{name}"
-            w = state[key]
-            state[key] = w + ((a[i] @ b[i]) * scale).to(w.dtype)
+    state = {**base.state_dict(), **apply_lora(base, adapters, cfg)}
     merged = type(base)(base.cfg, gen=None, device="meta", dtype=base.embed.dtype)
     merged.load_state_dict(state, strict=True, assign=True)
     return merged
 
 
-# the merged view for the forward pass (JAX rl/lora.py:59)
-apply_lora = lora_merge
 # backwards-compatible name from when Gemma was the only decoder
 apply_lora_to_gemma = apply_lora

@@ -18,7 +18,8 @@ same dtype; the prologue's and LayerNorm's forwards equal with and without
 the autograd Function, and LayerNorm on misaligned scale and bias views equal
 to aligned copies; stacked-QKV attention bit-equal to the attention kernel on
 contiguous copies of the three slices. The decoders: f32-output products of
-bf16 operands within max|d|/max|plain| 1e-5 of the product of f32 copies, and
+bf16 operands within max|d|/max|plain| 1e-5 of the product of f32 copies
+(their grads within 1e-2 of autograd of that product), and
 the debug Qwen3 and Gemma in f32 on the card (prefill through the attention
 kernel) within 1e-4 of the CPU's plain path, with equal greedy tokens.
 """
@@ -513,6 +514,30 @@ def test_f32_products_of_bf16_operands_on_the_card(dev):
     k = torch.randn(16, 300, 128, generator=g, device=dev).bfloat16()
     got = _bmm_f32(a, k.transpose(1, 2))
     assert got.dtype == torch.float32 and _rel(got, a.float() @ k.float().transpose(1, 2)) <= 1e-5
+
+
+def test_f32_products_of_bf16_operands_have_grads_on_the_card(dev):
+    """Where autograd records it, ``matmul_f32`` of bf16 operands goes
+    through its Function: x's and w's grads in bf16 within
+    max|d|/max|plain| 1e-2 of autograd of the product of f32 copies (the
+    output grad is rounded to bf16 once); a frozen w gets none."""
+    from multimodal_embedding_tpu_torch.models.layers import matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x0 = torch.randn(3, 5, 256, generator=g, device=dev).bfloat16()
+    w0 = (torch.randn(256, 1000, generator=g, device=dev) * 0.05).bfloat16()
+    dy = torch.randn(3, 5, 1000, generator=g, device=dev)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = matmul_f32(x, w)
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    gx, gw = torch.autograd.grad(y, (x, w), dy)
+    xp, wp = x0.float().requires_grad_(), w0.float().requires_grad_()
+    gxp, gwp = torch.autograd.grad(xp @ wp, (xp, wp), dy)
+    assert gx.dtype == gw.dtype == torch.bfloat16
+    assert _rel(gx.float(), gxp) <= 1e-2 and _rel(gw.float(), gwp) <= 1e-2
+    x = x0.clone().requires_grad_()
+    (gx_only,) = torch.autograd.grad(matmul_f32(x, w0), (x,), dy)
+    assert torch.equal(gx_only, gx)
 
 
 @pytest.mark.parametrize("arch", ["qwen3", "gemma"])

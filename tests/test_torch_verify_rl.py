@@ -12,9 +12,9 @@ the CPU.
   ``--base-params``: a debug Qwen3 tree written by the JAX ``save_params``
   (the two CLIs' inits draw from different generators).
 - That native Qwen3 checkpoint loads through the port's ``load_params``; a
-  Gemma checkpoint under ``--arch qwen3`` is refused; ``cli/train_rl.py``'s
-  ``main`` raises "not yet ported"; without a card the CLI refuses to run
-  unless given ``--device cpu``.
+  Gemma checkpoint under ``--arch qwen3`` is refused; without a card
+  ``cli/train_rl.py`` and ``cli/verify_rl.py`` refuse to run unless given
+  ``--device cpu``.
 """
 
 import ast
@@ -162,8 +162,8 @@ def test_native_qwen3_checkpoint_loads(checkpoint_and_adapters, qwen3_debug, tmp
 
 
 def test_training_is_not_ported_and_the_card_is_required(monkeypatch):
-    with pytest.raises(NotImplementedError, match="GRPO training is not yet ported"):
-        tcli_train.main([])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        tcli_train.main(["--model-size", "debug"])
     with pytest.raises(SystemExit, match="--device cpu"):
         tcli.main(["--model-size", "debug"])
