@@ -14,7 +14,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
      row over 729 keys, and the four other models' preprocess recipes; the
      left-padded causal prefills of Qwen3-14B and the small Qwen3, and
      Qwen3-14B's GRPO forward over a group of 8 at 272 tokens, with the
-     attention Function's q/k/v grads there against plain f32 autograd; plus
+     attention Function's q/k/v grads there against plain f32 autograd; one
+     rank's ViT-L heads under ``--tensor-parallel 2``, ``[64,577,8x64]``, and
+     the shapes phase 10 launches a rank (``[32,577,8x64]``, the text shard
+     ``[128,77,6x64]`` causal with a mask; under data parallelism
+     ``[16,577,16x64]`` and ``[64,77,12x64]``); plus
      attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
      checked on its first 64 queries),
      with the tolerances stated below, and time both, the one
@@ -107,6 +111,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
      --format-pretrain 20 --save-base`` then ``cli/verify_rl.py`` on its base
      and adapters, for Qwen3 and Gemma (the stats parse, each rate in [0, 100],
      the attention kernel launched in both).
+ 10. two ranks sharing the one card through gloo (``--device cuda:0``), started
+     by torchrun as this script with ``--parallel-rank`` (the kernels built by
+     phase 1): ``cli/main.py --tensor-parallel 2`` on OpenAI-CLIP-L at full
+     width (128 images, batch 32; pooled image and text cosine >= 0.999
+     against one rank's kernels, one CSV with every R@K in [0, 100], 24
+     attention launches a rank per image batch at ``[32,577,8x64]`` and 12 per
+     text batch at ``[128,77,6x64]``); the same model under plain data
+     parallelism (cosine >= 0.9999, the bootstrap bit-equal to one rank's on
+     the same scores); ``--sequence-parallel 2`` on ColPali-v1.3 at full width
+     through the engine, 8 images and 16 queries (per-token cosine >= 0.99 min
+     and >= 0.999 mean against one rank, pads exact zeros, MaxSim scores
+     finite); each rank's launches, peak device memory and seconds. Its QPS is
+     two processes time-slicing one card with collectives through host
+     memory, not a scaling figure.
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
@@ -707,6 +725,21 @@ def attention_cases() -> list[tuple[str, dict]]:
                                      layout="packed", full_mask_rows=False)),
         ("vit-h text packed causal+mask", dict(b=128, h=16, kvh=16, t=77, dh=64, dtype=bf16, causal=True,
                                                masked=True, layout="packed", full_mask_rows=False)),
+        # one rank's heads of ViT-L under --tensor-parallel 2 (phase 10)
+        ("vit-l tp2 shard packed", dict(b=64, h=8, kvh=8, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                                        layout="packed", full_mask_rows=False)),
+        # the shapes phase 10's CLI paths launch, a rank: --tensor-parallel 2
+        # (half the heads, the text shard's packed row 384 wide) and plain
+        # data parallelism (half the rows) over batches of 32 images and 128
+        # captions
+        ("vit-l tp2 shard b32 packed", dict(b=32, h=8, kvh=8, t=577, dh=64, dtype=bf16, causal=False,
+                                            masked=False, layout="packed", full_mask_rows=False)),
+        ("clip-l text tp2 shard packed causal+mask", dict(b=128, h=6, kvh=6, t=77, dh=64, dtype=bf16, causal=True,
+                                                          masked=True, layout="packed", full_mask_rows=False)),
+        ("vit-l dp2 rows packed", dict(b=16, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                                       layout="packed", full_mask_rows=False)),
+        ("clip-l text dp2 rows packed causal+mask", dict(b=64, h=12, kvh=12, t=77, dh=64, dtype=bf16, causal=True,
+                                                         masked=True, layout="packed", full_mask_rows=False)),
         # Workload B's prefill (phase 8), prompts left-padded to 256: Qwen3-14B
         # (40 query heads over 8 KV heads, Dh 128) in bf16, and the CLI's small
         # Qwen3 (8 over 4, Dh 64) in f32, its random init's dtype
@@ -2180,6 +2213,260 @@ def phase_workload_b_training(kernels: list[dict]) -> None:
     print(f"[phase9] {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 10: two ranks on the one card ----------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_CLI_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", "OpenAI-CLIP-L", "--sample-size", "128",
+    "--batch-size", "32", "--bootstrap-iterations", "100", "--device", "cuda:0",
+]
+TP_COSINE_MIN = 0.999  # bf16 partial products summed over 2 ranks, against one rank's kernels
+DP_COSINE_MIN = 0.9999  # the same kernels on half the rows of each batch
+PARALLEL_TIMEOUT_S = 420
+
+
+class _Recorder:
+    """Wraps the engine's encode methods and the attention wrapper while a
+    rank drives a path: the last image and text embeddings (by caption
+    count), the engine's image and text batch calls, and the q shapes the
+    attention kernel saw."""
+
+    def __init__(self):
+        from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+        from multimodal_embedding_tpu_torch.ops import attention_cuda
+
+        self.images = None
+        self.texts: dict[int, object] = {}
+        self.calls = {"image": 0, "text": 0}
+        self.q_shapes: set = set()
+        self._saved = []
+        rec = self
+
+        def wrap(owner, name, after):
+            real = getattr(owner, name)
+
+            def f(*a, **kw):
+                out = real(*a, **kw)
+                after(a, out)
+                return out
+
+            self._saved.append((owner, name, real))
+            setattr(owner, name, f)
+
+        wrap(EncodingEngine, "encode_images_cached", lambda a, out: setattr(rec, "images", out.embeddings))
+        wrap(EncodingEngine, "encode_texts", lambda a, out: rec.texts.__setitem__(len(a[1]), out))
+        wrap(EncodingEngine, "_image_batch", lambda a, out: rec.calls.__setitem__("image", rec.calls["image"] + 1))
+        wrap(EncodingEngine, "_text_batch", lambda a, out: rec.calls.__setitem__("text", rec.calls["text"] + 1))
+        wrap(attention_cuda, "fused_attention", lambda a, out: rec.q_shapes.add(tuple(a[0].shape)))
+
+    def close(self):
+        for owner, name, real in self._saved:
+            setattr(owner, name, real)
+
+
+def _rank_reference(records, dev):
+    """OpenAI-CLIP-L (the CLI's seed) on this rank alone, through the
+    kernels: the images and both caption sweeps."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.cli.main import SEED, load_model_for
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+    from multimodal_embedding_tpu_torch.models.registry import model_info
+
+    model = load_model_for(model_info("OpenAI-CLIP-L"), debug=False, arch=True, seed=SEED, device=dev)
+    engine = EncodingEngine(model, 32, device=dev)
+    ref = {"images": engine.encode_images([r["image"] for r in records]).embeddings,
+           "t2i": engine.encode_texts([r["captions"][0] for r in records]).embeddings,
+           "all": engine.encode_texts([c for r in records for c in r["captions"][:5]]).embeddings}
+    del model, engine
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _rank_cli(tag: str, flags: list[str], out: Path, ref: dict, report: dict) -> dict:
+    """One CLI run on every rank, its launches counted from 0 around it;
+    returns the recorder's cosines against one rank's embeddings."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.cli import main as cli
+
+    counters = _counters()
+    rec = _Recorder()
+    boot_checks = []
+    real_boot = cli.bootstrap_benchmark
+
+    def boot(s_t2i, s_i2t, n, **kw):  # the same scores on one rank: bit-equal metrics
+        got = real_boot(s_t2i, s_i2t, n, **kw)
+        alone = real_boot(s_t2i, s_i2t, n, **{**kw, "mesh": None})
+        boot_checks.append(kw.get("mesh") is not None and all(
+            np.array_equal(got.metrics[k], alone.metrics[k]) for k in alone.metrics)
+            and np.array_equal(got.sample_idx, alone.sample_idx) and np.array_equal(got.correct_r1, alone.correct_r1))
+        return got
+
+    cli.bootstrap_benchmark = boot
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main([*PARALLEL_CLI_ARGS, *flags, "--output", str(out / f"{tag}.csv")])
+    finally:
+        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+        cli.bootstrap_benchmark = real_boot
+        rec.close()
+    require(rc == 0, f"{tag}: CLI exited {rc}")
+    cos = {"images": _cosines(rec.images, ref["images"]), "t2i": _cosines(rec.texts[128].embeddings, ref["t2i"]),
+           "all": _cosines(rec.texts[640].embeddings, ref["all"])}
+    report[tag] = {"seconds": time.perf_counter() - t0, "counts": counts, "calls": rec.calls,
+                   "q_shapes": sorted(rec.q_shapes), "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "cosine_min": {k: float(v.min()) for k, v in cos.items()},
+                   "bootstrap_bit_equal": boot_checks}
+    return report[tag]
+
+
+def _rank_colpali_sp(dev, report: dict) -> None:
+    """ColPali-v1.3 at full width under --sequence-parallel 2 through the
+    engine, 8 images and 16 queries, against the same engine on one rank."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.cli.main import SEED, load_model_for
+    from multimodal_embedding_tpu_torch.data.coco import load_benchmark_dataset
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
+    from multimodal_embedding_tpu_torch.models.registry import model_info
+    from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh
+    from multimodal_embedding_tpu_torch.retrieval.scoring import late_interaction_scores
+
+    records = load_benchmark_dataset("synthetic", sample_size=16, seed=SEED)
+    images, queries = [r["image"] for r in records[:8]], [r["captions"][0] for r in records]
+    model = load_model_for(model_info("ColPali-v1.3"), debug=False, arch=True, seed=SEED, device=dev)
+    mesh = get_mesh(n_model=PARALLEL_RANKS)
+    engine = EncodingEngine(model, 4, device=dev, mesh=mesh)
+    alone_img, alone_txt = engine.encode_images(images).embeddings, engine.encode_texts(queries)
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t0 = time.perf_counter()
+    layers.set_sp_mesh(mesh)
+    try:
+        img, txt = engine.encode_images(images).embeddings, engine.encode_texts(queries)
+        scores = late_interaction_scores(txt.embeddings, img, impl="auto", mesh=mesh)
+    finally:
+        layers.set_sp_mesh(None)
+    torch.cuda.synchronize()
+    counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    valid = txt.mask.bool()
+    cos = torch.cat([_cosines(img.flatten(0, 1), alone_img.flatten(0, 1)),
+                     _cosines(txt.embeddings[valid], alone_txt.embeddings[valid])])
+    report["sp2 colpali"] = {
+        "seconds": time.perf_counter() - t0, "counts": counts, "peak_bytes": torch.cuda.max_memory_allocated(),
+        "shapes": [list(img.shape), list(txt.embeddings.shape)], "tokens": int(cos.numel()),
+        "cosine_min": float(cos.min()), "cosine_mean": float(cos.mean()),
+        "pads_zero": bool((txt.embeddings[~valid] == 0).all()), "pads": int((~valid).sum()),
+        "scores_finite": bool(scores.isfinite().all()), "scores_shape": list(scores.shape),
+    }
+    del model, engine
+    torch.cuda.empty_cache()
+
+
+def parallel_rank(out: Path) -> int:
+    """One rank of phase 10, started by torchrun: --tensor-parallel 2 and
+    plain data parallelism through the CLI on OpenAI-CLIP-L, then
+    --sequence-parallel 2 on ColPali-v1.3 through the engine; its report goes
+    to ``out/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_embedding_tpu_torch.cli.main import SEED
+    from multimodal_embedding_tpu_torch.data.coco import load_benchmark_dataset
+    from multimodal_embedding_tpu_torch.parallel.mesh import init_distributed
+
+    dev = init_distributed("cuda:0", timeout_s=180)  # gloo: both ranks share the card
+    rank = dist.get_rank()
+    report = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    records = load_benchmark_dataset("synthetic", sample_size=128, seed=SEED)
+    t0 = time.perf_counter()
+    ref = _rank_reference(records, dev)
+    report["reference_seconds"] = time.perf_counter() - t0
+    _rank_cli("tp2 clip-l", ["--tensor-parallel", str(PARALLEL_RANKS)], out, ref, report)
+    _rank_cli("dp2 clip-l", [], out, ref, report)
+    del ref
+    torch.cuda.empty_cache()
+    _rank_colpali_sp(dev, report)
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(kernels: list[dict]) -> None:
+    """Phase 10: two ranks on the one H100 through gloo (``--device
+    cuda:0``), launched by torchrun; the kernels were built by phase 1."""
+    import os
+    import shutil
+    import signal
+
+    import pandas as pd
+
+    out = OUT_DIR / "parallel"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(PARALLEL_RANKS),
+           str(ROOT / "chip_smoke.py"), "--parallel-rank", str(out)]
+    proc = subprocess.Popen(cmd, cwd=out, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=PARALLEL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and both ranks
+        log, _ = proc.communicate()
+    (out / "torchrun.log").write_text(log)
+    if proc.returncode != 0:
+        print(log[-6000:])
+    require(proc.returncode == 0, f"phase 10: torchrun exited {proc.returncode}")
+    reports = [json.loads((out / f"rank{r}.json").read_text()) for r in range(PARALLEL_RANKS)]
+    for rep in reports:
+        require(rep["backend"] == "gloo" and rep["device"] == "cuda:0", f"rank layout {rep}")
+        tp, dp, sp = rep["tp2 clip-l"], rep["dp2 clip-l"], rep["sp2 colpali"]
+        # a) TP: each rank's 8 of 16 vision heads, 6 of 12 text heads
+        want_attn = 24 * tp["calls"]["image"] + 12 * tp["calls"]["text"]
+        require(tp["counts"]["fused_attention"] == want_attn and tp["counts"]["preprocess"] > 0,
+                f"rank {rep['rank']} tp launches {tp['counts']}, want {want_attn} attention")
+        require([tuple(s) for s in tp["q_shapes"]] == [(32, 577, 512), (128, 77, 384)],
+                f"rank {rep['rank']} tp attention shapes {tp['q_shapes']}")
+        require(min(tp["cosine_min"].values()) >= TP_COSINE_MIN, f"tp cosine {tp['cosine_min']}")
+        # b) DP: half of each batch a rank, the bootstrap bit-equal to one rank's
+        require(min(dp["cosine_min"].values()) >= DP_COSINE_MIN, f"dp cosine {dp['cosine_min']}")
+        require(dp["bootstrap_bit_equal"] == [True], f"dp bootstrap not bit-equal to one rank")
+        require(dp["counts"]["fused_attention"] == 24 * dp["calls"]["image"] + 12 * dp["calls"]["text"],
+                f"dp launches {dp['counts']}")
+        # c) SP on ColPali
+        require(sp["cosine_min"] >= COLPALI_COSINE_MIN and sp["cosine_mean"] >= COSINE_MIN,
+                f"sp per-token cosine min {sp['cosine_min']}, mean {sp['cosine_mean']}")
+        require(sp["pads_zero"] and sp["scores_finite"], f"sp pads or scores: {sp}")
+        require(all(sp["counts"][k] > 0 for k in ("fused_attention", "preprocess", "maxsim")),
+                f"sp launches {sp['counts']}")
+    for tag in ("tp2 clip-l", "dp2 clip-l"):
+        df = pd.read_csv(out / f"{tag}.csv")
+        require(list(df["Model"]) == ["OpenAI-CLIP-L"], f"{tag} CSV rows {list(df['Model'])}")
+        for col in REFERENCE_COLUMNS[2:-5]:
+            val = float(df[col].iloc[0])
+            require(math.isfinite(val) and 0.0 <= val <= 100.0, f"{tag} {col} = {val}")
+        for rep in reports:
+            rep[tag]["qps"] = float(df["QPS"].iloc[0])
+    for rep in reports:
+        print(f"[parallel] rank {rep['rank']}: " + json.dumps({k: v for k, v in rep.items() if k != "rank"}))
+    print(f"[parallel] two processes time-slicing one card, collectives through host memory (gloo): the QPS is "
+          f"not a scaling figure; tp2 QPS {reports[0]['tp2 clip-l']['qps']}, dp2 QPS "
+          f"{reports[0]['dp2 clip-l']['qps']}")
+    for k in kernels:
+        for tag in ("tp2 clip-l", "dp2 clip-l", "sp2 colpali"):
+            k["launches_by_path"][tag] = reports[0][tag]["counts"].get(k["name"], 0)
+    print(f"[phase10] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2192,6 +2479,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     args = sys.argv[1:]
+    if args[:1] == ["--parallel-rank"]:  # one of phase 10's ranks, started by torchrun
+        return parallel_rank(Path(args[1]))
     if args == ["--attention-cases"]:
         args = ["--cases", "attention"]
     if args:
@@ -2211,6 +2500,7 @@ def main() -> int:
     phase_workload_a(kernels)
     phase_workload_b(kernels)
     phase_workload_b_training(kernels)
+    phase_parallel(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

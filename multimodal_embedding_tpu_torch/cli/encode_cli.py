@@ -22,8 +22,9 @@ import numpy as np
 from ..data.coco import load_benchmark_dataset
 from ..models.encode import EncodingEngine
 from ..models.registry import model_info
+from ..parallel.mesh import distributed, is_writer
 from ..utils.logging import setup_logging
-from .main import load_model_for, resolve_device
+from .main import data_mesh, device_arg, load_model_for
 
 logger = logging.getLogger("mme_tpu")
 
@@ -41,21 +42,25 @@ def parse_args(argv=None):
     p.add_argument("--texts", action=argparse.BooleanOptionalAction, default=True,
                    help="Also encode all captions")
     p.add_argument("--seed", type=int, default=42)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="Run on the CUDA card (default) or, only when asked, the CPU")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:N or, only when asked, cpu")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     setup_logging(None)
-    device = resolve_device(args.device)
+    with distributed(args.device) as device:
+        return _run(args, device)
+
+
+def _run(args, device) -> int:
     info = model_info(args.model)
     model = load_model_for(info, debug=args.debug_models, arch=args.arch_models, seed=args.seed, device=device)
 
     records = load_benchmark_dataset(args.dataset, cache_dir=args.cache_dir, sample_size=args.sample_size,
                                      seed=args.seed)
-    engine = EncodingEngine(model, info.batch_size or args.batch_size, device=device)
+    engine = EncodingEngine(model, info.batch_size or args.batch_size, device=device, mesh=data_mesh())
 
     img = engine.encode_images([r["image"] for r in records])
     out = {
@@ -69,6 +74,8 @@ def main(argv=None) -> int:
         out["caption_image_index"] = np.asarray([i for i, r in enumerate(records) for _ in r["captions"]])
         if txt.mask is not None:
             out["text_masks"] = txt.mask.cpu().numpy()
+    if not is_writer():  # rank 0 writes
+        return 0
     np.savez_compressed(args.output, **out)
     logger.info(
         f"Wrote {out['image_embeddings'].shape} image embeddings"

@@ -8,10 +8,23 @@ main.py:643-665). QPS = images / encode-phase seconds, where the encode
 phase covers the images and both text sweeps (reference main.py:493-497);
 warmup runs before the timer.
 
-``--device {cuda,cpu}`` picks the device (default cuda); without a CUDA
-device the CLI exits nonzero unless ``--device cpu`` was given.
-``--tensor-parallel`` and ``--sequence-parallel`` above 1 raise "not yet
-ported".
+``--device`` picks the device: ``cuda`` (the default; ``cuda:LOCAL_RANK``
+under torchrun), ``cuda:N`` (card N for every rank) or ``cpu``; without a
+CUDA device the CLI exits nonzero unless ``--device cpu`` was given.
+
+Parallelism (``parallel/``): launched by torchrun, the ranks form a
+``(data, model)`` mesh, the model axis ``--tensor-parallel`` or
+``--sequence-parallel`` (not both), the data axis the rest. Each data rank
+encodes its rows of every batch, scores its query rows and runs its share
+of the bootstrap iterations; tensor parallelism splits the towers' and
+Gemma's weights over the model axis, sequence parallelism ColPali's Gemma
+tokens. Only rank 0 writes the CSV, the bootstrap sidecar, the score cache
+and the log; QPS is timed between barriers. In a world of one rank no
+process group is made. Every rank must succeed: a model that fails on one
+rank fails the run.
+
+    torchrun --nproc-per-node 2 -m multimodal_embedding_tpu_torch.cli.main \\
+        --device cpu --debug-models --tensor-parallel 2 --dataset synthetic
 
 Staging (``--device-cache``, default on): with ``--overlap-staging`` (default)
 a background thread stages the images while the first model loads and warms
@@ -50,6 +63,7 @@ from ..data.coco import load_benchmark_dataset
 from ..models.encode import AsyncImageStager, DeviceImageCache, EncodingEngine, stage_images
 from ..models.registry import get_models_to_test
 from ..models.zoo import LoadedModel, load_debug_model, load_model
+from ..parallel.mesh import barrier, distributed, get_mesh, is_writer, resolve_rank_device, world_size
 from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..stats.bootstrap import bootstrap_benchmark
 from ..stats.ci import bootstrap_confidence_interval
@@ -83,8 +97,9 @@ def parse_args(argv=None):
                    help="Random-init towers at the FULL published architecture "
                         "(perf runs without checkpoint access)")
     p.add_argument("--seed", type=int, default=SEED)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="Run on the CUDA card (default) or, only when asked, the CPU")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:N (card N for "
+                        "every rank) or, only when asked, cpu")
     p.add_argument("--maxsim-impl", type=str, default="auto", choices=["auto", "pallas", "xla"],
                    help="Multi-vector (ColPali) scoring: auto and pallas (the MaxSim "
                         "CUDA kernel on the card), or the plain PyTorch version (xla); "
@@ -127,26 +142,44 @@ def parse_args(argv=None):
     p.add_argument("--native-cache-dir", type=str, default=None,
                    help="Keep the dense and siglip models' converted weights as .npz here "
                         "and reload them without transformers")
-    p.add_argument("--tensor-parallel", type=int, default=1, help="Values above 1: not yet ported")
-    p.add_argument("--sequence-parallel", type=int, default=1, help="Values above 1: not yet ported")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="Model-axis size of the device mesh: params are "
+                        "Megatron column/row-split across this many chips "
+                        "(parallel/tp.py); the data axis gets the rest")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="Model-axis size for sequence/context parallelism: "
+                        "ColPali's 1030-token Gemma prefill shards its token "
+                        "dim across this many chips (K/V all-gather, "
+                        "parallel/sp.py). Mutually exclusive with "
+                        "--tensor-parallel")
     return p.parse_args(argv)
 
 
-def _reject_unported(args) -> None:
-    unported = {
-        "--tensor-parallel above 1": args.tensor_parallel > 1,
-        "--sequence-parallel above 1": args.sequence_parallel > 1,
-    }
-    for flag, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{flag} is not yet ported to the PyTorch/CUDA package")
+def device_arg(name: str) -> str:
+    """``--device``: cuda, cuda:N or cpu."""
+    kind, _, index = name.partition(":")
+    if name not in ("cuda", "cpu") and not (kind == "cuda" and index.isdigit()):
+        raise argparse.ArgumentTypeError(f"--device takes cuda, cuda:N or cpu, not {name!r}")
+    return name
+
+
+def check_parallel_flags(args) -> None:
+    """Tensor and sequence parallelism both take the model axis: one only."""
+    if args.tensor_parallel > 1 and args.sequence_parallel > 1:
+        raise SystemExit("--tensor-parallel and --sequence-parallel both use the model mesh axis; pick one")
 
 
 def resolve_device(name: str) -> torch.device:
-    """The run's device; never falls back from the card to the CPU."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
-    return torch.device(name)
+    """The device of a CLI with no parallel path (``cuda``, ``cuda:N`` or
+    ``cpu``; ``parallel/mesh.py:resolve_rank_device``): no process group is
+    joined. Never falls back from the card to the CPU."""
+    return resolve_rank_device(name)
+
+
+def data_mesh():
+    """The companion CLIs' mesh: every rank on the data axis, as their JAX
+    counterparts' ``get_mesh()``; None in a world of one."""
+    return get_mesh() if world_size() > 1 else None
 
 
 def compute_score_matrices(
@@ -156,15 +189,18 @@ def compute_score_matrices(
     cache: DeviceImageCache | None = None,
     maxsim_impl: str = "auto",
     stager: AsyncImageStager | None = None,
+    mesh=None,
 ):
     """Encode once, build the two full score matrices. Returns
     (s_t2i [N,N], s_i2t [N,K*N], encoding_time). With a ``stager`` the images
     are encoded as their slices land, and the upload stall is not encode
-    time."""
+    time. With a ``mesh`` of more than one rank the query rows are scored
+    over its data axis, and the encode is timed between barriers."""
     kc = caps_per_image(records)
     t2i_captions = [r["captions"][0] for r in records]  # T2I uses the first caption
     all_captions = [c for r in records for c in r["captions"][:kc]]
 
+    barrier(engine.device)
     t0 = time.perf_counter()
     stall = 0.0
     if stager is not None:
@@ -176,16 +212,18 @@ def compute_score_matrices(
         img = engine.encode_images([r["image"] for r in records])
     txt_t2i = engine.encode_texts(t2i_captions)
     txt_all = engine.encode_texts(all_captions)
+    barrier(engine.device)
     encoding_time = time.perf_counter() - t0 - stall
 
+    smesh = mesh if mesh is not None and mesh.size > 1 else None
     if model.multi_vector:
         # no masks: pad-token embeddings are exact zeros (COMPAT #8),
         # reproducing colpali_engine's scoring
-        s_t2i = late_interaction_scores(txt_t2i.embeddings, img.embeddings, impl=maxsim_impl)
-        s_i2t = late_interaction_scores(img.embeddings, txt_all.embeddings, impl=maxsim_impl)
+        s_t2i = late_interaction_scores(txt_t2i.embeddings, img.embeddings, impl=maxsim_impl, mesh=smesh)
+        s_i2t = late_interaction_scores(img.embeddings, txt_all.embeddings, impl=maxsim_impl, mesh=smesh)
     else:
-        s_t2i = dense_scores(txt_t2i.embeddings, img.embeddings)
-        s_i2t = dense_scores(img.embeddings, txt_all.embeddings)
+        s_t2i = dense_scores(txt_t2i.embeddings, img.embeddings, mesh=smesh)
+        s_i2t = dense_scores(img.embeddings, txt_all.embeddings, mesh=smesh)
     return s_t2i, s_i2t, encoding_time
 
 
@@ -207,6 +245,7 @@ def run_bootstrap_benchmark(
     streaming_encode: bool = False,
     sample_idx: np.ndarray | None = None,
     ci_idx: np.ndarray | None = None,
+    mesh=None,
 ) -> dict:
     """Encode-once / resample-many (reference main.py:478-667). ``sample_idx``
     and ``ci_idx`` replay given bootstrap and CI resamples. With a
@@ -232,7 +271,7 @@ def run_bootstrap_benchmark(
         s_t2i, s_i2t = torch.from_numpy(s_t2i).to(device), torch.from_numpy(s_i2t).to(device)
     else:
         engine = EncodingEngine(model, model.info.batch_size or batch_size, device=device,
-                                preprocess_impl=preprocess_impl, transport=transport)
+                                preprocess_impl=preprocess_impl, transport=transport, mesh=mesh)
         logger.info("Warming up...")
         # the timed phase encodes two text sweeps; run both once first
         text_sets = [[r["captions"][0] for r in records], [c for r in records for c in r["captions"][:kc]]]
@@ -257,16 +296,17 @@ def run_bootstrap_benchmark(
                 engine.warmup(g, text_sets=text_sets)
 
         t_start = time.perf_counter()
-        s_t2i, s_i2t, encoding_time = compute_score_matrices(model, engine, records, cache, maxsim_impl, stager)
+        s_t2i, s_i2t, encoding_time = compute_score_matrices(model, engine, records, cache, maxsim_impl, stager,
+                                                             mesh)
         if encode_passes > 1:
             # scores are deterministic; extra passes only re-time the encode
             times = [encoding_time]
             extra_cache = cache if cache is not None else (stager.wait() if stager is not None else None)
             for _ in range(encode_passes - 1):
-                times.append(compute_score_matrices(model, engine, records, extra_cache, maxsim_impl)[2])
+                times.append(compute_score_matrices(model, engine, records, extra_cache, maxsim_impl, mesh=mesh)[2])
             encoding_time = float(np.median(times))
             logger.info(f"encode passes: {[round(t, 2) for t in times]} -> median {encoding_time:.2f}s")
-        if score_cache_dir:
+        if score_cache_dir and is_writer():
             from ..stats.score_cache import save_scores
 
             save_scores(score_cache_dir, model.info.name, records, s_t2i, s_i2t, encoding_time,
@@ -275,7 +315,8 @@ def run_bootstrap_benchmark(
     report_memory(device)
 
     logger.info(f"Running {n_iterations} bootstrap iterations on device...")
-    out = bootstrap_benchmark(s_t2i, s_i2t, n_iterations, seed=seed, caps_per_image=kc, sample_idx=sample_idx)
+    out = bootstrap_benchmark(s_t2i, s_i2t, n_iterations, seed=seed, caps_per_image=kc, sample_idx=sample_idx,
+                              mesh=mesh if mesh is not None and mesh.size > 1 else None)
     total_time = time.perf_counter() - t_start
 
     # random-weight runs must never be mistaken for accuracy parity
@@ -321,16 +362,43 @@ def _load(info, args, device) -> LoadedModel:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    setup_logging()
-    _reject_unported(args)
-    device = resolve_device(args.device)
+    check_parallel_flags(args)
+    from ..models.layers import set_sp_mesh, set_tp_mesh
+
+    with distributed(args.device) as device:
+        try:
+            return _run(args, device)
+        finally:
+            set_tp_mesh(None)
+            set_sp_mesh(None)
+
+
+def _run(args, device: torch.device) -> int:
+    # rank 0 keeps the log; the other ranks print warnings and errors only
+    setup_logging(**({} if is_writer() else {"log_file": None, "level": logging.WARNING}))
     logger.info(f"BENCHMARK START (V29 STATISTICAL, PyTorch/CUDA) - Output: {args.output}")
     logger.info(f"Bootstrap iterations: {args.bootstrap_iterations}; device: {device}")
 
-    from ..models.layers import set_attention_impl, set_layer_impl
+    from ..models.layers import set_attention_impl, set_layer_impl, set_sp_mesh, set_tp_mesh
 
     set_attention_impl(args.attention_impl)
     set_layer_impl(args.layer_impl)
+    mesh = get_mesh(n_model=max(args.tensor_parallel, args.sequence_parallel))
+    if mesh.size > 1:
+        import torch.distributed as dist
+
+        logger.info(f"Device mesh: {mesh.shape} over {mesh.size} ranks ({dist.get_backend()} backend), "
+                    f"rank 0 on {device}")
+    set_sp_mesh(mesh if args.sequence_parallel > 1 else None)
+    set_tp_mesh(mesh if args.tensor_parallel > 1 else None)
+    if args.sequence_parallel > 1:
+        logger.info(f"--sequence-parallel {args.sequence_parallel}: ColPali's Gemma token dim sharded over the "
+                    f"model axis (K/V all-gather)")
+    if args.tensor_parallel > 1:
+        # the attention kernel runs on each rank's heads; the residual+LN+matmul
+        # prologue kernel does not split, so the layer impl takes the plain path
+        set_layer_impl("xla")
+        logger.info("--tensor-parallel: attention kernel runs per-rank head shards; layer prologue fusion -> xla")
 
     records = load_benchmark_dataset(
         args.dataset, cache_dir=args.cache_dir, workers=args.workers,
@@ -343,13 +411,13 @@ def main(argv=None) -> int:
     if args.device_cache:
         images = [r["image"] for r in records]
         if args.overlap_staging:
-            stager = AsyncImageStager(images, args.batch_size, device)
+            stager = AsyncImageStager(images, args.batch_size, device, mesh)
             mode = ("model 1 encodes streaming slices" if args.streaming_encode
                     else "model 1 joins before its timed encode")
             logger.info(f"Staging {stager.n_images} raw images to {device} in the background "
                         f"({len(stager.slice_plan)} slices) — {mode}")
         else:
-            cache = stage_images(images, args.batch_size, device)
+            cache = stage_images(images, args.batch_size, device, mesh)
             logger.info(f"Staged {cache.n_images} raw images to {device} in {cache.stage_seconds:.1f}s "
                         f"(one-time, shared by all models)")
 
@@ -373,6 +441,8 @@ def main(argv=None) -> int:
                     logger.info(f"Background staging complete: {cache.n_images} images in "
                                 f"{cache.stage_seconds:.1f}s (overlapped with model 1)")
                 except Exception as e:  # the run goes on without the shared device cache
+                    if world_size() > 1:
+                        raise
                     logger.error(f"Background staging failed: {e} — continuing without the shared device cache")
                     cache = None
                 finally:
@@ -382,6 +452,8 @@ def main(argv=None) -> int:
         try:
             model = _load(info, args, device)
         except Exception as e:  # per-model skip-and-continue, as the reference
+            if world_size() > 1:  # the ranks' collectives would part ways
+                raise
             logger.error(f"Model load failed: {e}")
             continue
         try:
@@ -391,17 +463,20 @@ def main(argv=None) -> int:
                     seed=args.seed, cache=cache, preprocess_impl=args.preprocess_impl,
                     maxsim_impl=args.maxsim_impl, encode_passes=args.encode_passes, transport=args.transport,
                     score_cache_dir=args.score_cache_dir, stager=this_stager,
-                    streaming_encode=args.streaming_encode,
+                    streaming_encode=args.streaming_encode, mesh=mesh,
                 )
             bootstrap_metrics = result.pop("_bootstrap_metrics", None)
             if bootstrap_metrics:
                 all_bootstrap.update({f"{info.name}::{k}": v for k, v in bootstrap_metrics.items()})
-                # the raw per-iteration samples: the analyzer's permutation tests read them
-                np.savez_compressed(args.output + ".bootstrap.npz", **all_bootstrap)
+                if is_writer():  # the raw per-iteration samples: the analyzer's permutation tests read them
+                    np.savez_compressed(args.output + ".bootstrap.npz", **all_bootstrap)
             final_results.append(result)
-            pd.DataFrame(final_results).to_csv(args.output, index=False)
-            logger.info(f"Checkpoint saved to {args.output}")
+            if is_writer():
+                pd.DataFrame(final_results).to_csv(args.output, index=False)
+                logger.info(f"Checkpoint saved to {args.output}")
         except Exception as e:
+            if world_size() > 1:
+                raise
             logger.error(f"Evaluation failed for {info.name}: {e}")
             traceback.print_exc()
         finally:
@@ -419,6 +494,8 @@ def main(argv=None) -> int:
         try:
             stager.wait()
         except Exception as e:  # the results are written; report the staging failure
+            if world_size() > 1:
+                raise
             logger.error(f"Background staging failed after results: {e}")
 
     logger.info("BENCHMARK COMPLETE!")

@@ -32,10 +32,11 @@ from ..data.captions import caps_per_image
 from ..data.coco import load_benchmark_dataset
 from ..models.encode import EncodingEngine, stage_images
 from ..models.registry import get_models_to_test
+from ..parallel.mesh import distributed, is_writer, world_size
 from ..retrieval.metrics import compute_metrics
 from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..utils.logging import setup_logging
-from .main import load_model_for, resolve_device
+from .main import data_mesh, device_arg, load_model_for
 
 logger = logging.getLogger("mme_tpu")
 
@@ -72,8 +73,8 @@ def parse_args(argv=None):
                         "subsets — identical results, COMPAT.md #13)")
     p.add_argument("--device-cache", action=argparse.BooleanOptionalAction, default=True,
                    help="Stage pool images to device memory once (encode-once mode)")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="Run on the CUDA card (default) or, only when asked, the CPU")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:N or, only when asked, cpu")
     return p.parse_args(argv)
 
 
@@ -153,9 +154,17 @@ def run_metrics_from_pool(model, img, txt, txt_all, kc, idx, n_pool, enc_time,
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    setup_logging("benchmark_v28.log")
-    device = resolve_device(args.device)
-    logger.info(f"V28 MULTI-SEED BENCHMARK — runs={args.runs}, device={device}")
+    with distributed(args.device) as device:
+        return _run(args, device)
+
+
+def _run(args, device) -> int:
+    # rank 0 keeps the log and writes the CSV; each rank encodes its rows
+    setup_logging(**({"log_file": "benchmark_v28.log"} if is_writer() else {"log_file": None,
+                                                                          "level": logging.WARNING}))
+    mesh = data_mesh()
+    logger.info(f"V28 MULTI-SEED BENCHMARK — runs={args.runs}, device={device}, "
+                f"mesh={None if mesh is None else mesh.shape}")
 
     if args.dataset != "synthetic":
         pool = load_benchmark_dataset(args.dataset, cache_dir=args.cache_dir, workers=args.workers,
@@ -174,7 +183,7 @@ def main(argv=None) -> int:
 
     cache = None
     if not args.per_run_encode and args.device_cache:
-        cache = stage_images([r["image"] for r in pool], args.batch_size, device)
+        cache = stage_images([r["image"] for r in pool], args.batch_size, device, mesh)
         logger.info(f"Staged {cache.n_images} pool images to {device} in {cache.stage_seconds:.1f}s "
                     f"(one-time, shared by all models)")
 
@@ -184,11 +193,13 @@ def main(argv=None) -> int:
         try:
             model = load_model_for(info, debug=args.debug_models, arch=args.arch_models, seed=SEED, device=device)
         except Exception as e:  # per-model skip-and-continue, as the reference
+            if world_size() > 1:  # the ranks' collectives would part ways
+                raise
             logger.error(f"Model Load Failed for {info.name}: {e}")
             continue
 
         try:
-            engine = EncodingEngine(model, info.batch_size or args.batch_size, device=device)
+            engine = EncodingEngine(model, info.batch_size or args.batch_size, device=device, mesh=mesh)
             wino = run_winoground(engine, wino_records) if wino_records else {}
 
             pool_enc = None
@@ -227,9 +238,12 @@ def main(argv=None) -> int:
                 vals = [r[k] for r in runs if k in r]
                 row[k] = f"{np.mean(vals):.1f} ± {np.std(vals):.1f}"
             results.append(row)
-            pd.DataFrame(results).to_csv(args.output, index=False)
-            logger.info(f"  ✅ Saved checkpoint to {args.output}")
+            if is_writer():
+                pd.DataFrame(results).to_csv(args.output, index=False)
+                logger.info(f"  ✅ Saved checkpoint to {args.output}")
         except Exception as e:  # per-model skip-and-continue, as the reference
+            if world_size() > 1:
+                raise
             logger.error(f"Evaluation Failed for {info.name}: {e}")
             traceback.print_exc()
         finally:

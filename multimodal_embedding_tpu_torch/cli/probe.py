@@ -17,15 +17,18 @@ without a CUDA device it exits nonzero unless ``--device cpu`` was given).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 
 import numpy as np
 import torch
 
 from ..models.encode import EncodingEngine
 from ..models.registry import get_models_to_test, model_info
+from ..parallel.mesh import distributed, is_writer
 from ..retrieval.scoring import late_interaction_scores
 from ..utils.logging import setup_logging
-from .main import load_model_for, resolve_device
+from .main import data_mesh, device_arg, load_model_for
 
 
 def parse_args(argv=None):
@@ -42,8 +45,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", default=None,
                    help="local checkpoint directory override (instead of the "
                         "HF hub id) for both our loader and the HF reference")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="Run on the CUDA card (default) or, only when asked, the CPU")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:N or, only when asked, cpu")
     return p.parse_args(argv)
 
 
@@ -222,7 +225,7 @@ def probe_model(name: str, weights: str, threshold: float, hf_parity: bool = Fal
         if not hf_parity_check(model, info, checkpoint_dir, parity_threshold):
             return False
 
-    engine = EncodingEngine(model, 4, device=device)
+    engine = EncodingEngine(model, 4, device=device, mesh=data_mesh())
     h, w = 240, 320
     yy, xx = np.mgrid[0:h, 0:w]
     img = np.stack([(xx * 255 // w), (yy * 255 // h), np.full((h, w), 128)], -1).astype(np.uint8)
@@ -262,13 +265,16 @@ def probe_model(name: str, weights: str, threshold: float, hf_parity: bool = Fal
 def main(argv=None) -> int:
     args = parse_args(argv)
     setup_logging(None)
-    device = resolve_device(args.device)
     ok = True
-    for info in get_models_to_test(args.models, 4):
-        print(f"=== {info.name} ({info.hf_id}) ===")
-        ok &= probe_model(info.name, args.weights, args.sim_threshold, hf_parity=args.hf_parity,
-                          parity_threshold=args.parity_threshold, checkpoint_dir=args.checkpoint_dir,
-                          device=device)
+    with distributed(args.device) as device:
+        # every rank probes (each encodes its rows); rank 0 prints
+        quiet = contextlib.nullcontext() if is_writer() else contextlib.redirect_stdout(io.StringIO())
+        with quiet:
+            for info in get_models_to_test(args.models, 4):
+                print(f"=== {info.name} ({info.hf_id}) ===")
+                ok &= probe_model(info.name, args.weights, args.sim_threshold, hf_parity=args.hf_parity,
+                                  parity_threshold=args.parity_threshold, checkpoint_dir=args.checkpoint_dir,
+                                  device=device)
     return 0 if ok else 1
 
 

@@ -14,10 +14,11 @@ from __future__ import annotations
 import argparse
 
 from ..models.encode import EncodingEngine
+from ..parallel.mesh import distributed, is_writer
 from ..retrieval.search import Index, search_texts
 from ..utils.logging import setup_logging
 from ..models.registry import model_info
-from .main import load_model_for, resolve_device
+from .main import data_mesh, device_arg, load_model_for
 
 
 def parse_args(argv=None):
@@ -28,21 +29,27 @@ def parse_args(argv=None):
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--debug-models", action="store_true")
     p.add_argument("--arch-models", action="store_true")
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="Run on the CUDA card (default) or, only when asked, the CPU")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="cuda (default; cuda:LOCAL_RANK under torchrun), cuda:N or, only when asked, cpu")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     setup_logging(None)
-    device = resolve_device(args.device)
+    with distributed(args.device) as device:
+        return _run(args, device)
+
+
+def _run(args, device) -> int:
     # the JAX CLI loads with each loader's default seed (0)
     model = load_model_for(model_info(args.model), debug=args.debug_models, arch=args.arch_models, seed=0,
                            device=device)
     index = Index.from_npz(args.index, device=device)
-    engine = EncodingEngine(model, 8, device=device)
+    engine = EncodingEngine(model, 8, device=device, mesh=data_mesh())
     results = search_texts(model, engine, index, args.query, k=args.k)
+    if not is_writer():  # rank 0 prints
+        return 0
     for q, hits in zip(args.query, results):
         print(f"query: {q}")
         for doc_id, score in hits:

@@ -14,6 +14,11 @@ Counterpart of ``multimodal_embedding_tpu/models/colpali.py``:
   token with ``max(norm, 1e-12)``; query pad tokens are zeroed (HF
   ColPaliForRetrieval's ``emb * mask``, COMPAT #8).
 
+Under ``--sequence-parallel`` (``parallel/sp.py``) the vision tower runs
+whole on every rank, as in the JAX package; Gemma and the head run on this
+rank's token shard where the model axis divides the sequence, and the
+per-token embeddings are gathered at the end.
+
 Scoring runs MaxSim without masks: a zero pad vector adds a 0 floor to the
 doc-token max and exactly 0 to the query sum. ``colpali_params_from_hf``
 converts an HF ``ColPaliForRetrieval`` state dict into the JAX package's
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 from ..ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, PreprocessConfig
+from ..parallel.sp import gather_tokens, sp_mesh_for
 from .convert import _encoder_from_hf, _lin, _ln, _patch_w, _t, stack_layers
 from .gemma import Gemma, GemmaConfig
 from .layers import linear
@@ -87,16 +93,18 @@ class ColPali(nn.Module):
         proj = linear(feats, self.mm_proj["w"], self.mm_proj["b"])
         b = pixels.shape[0]
         suffix = self.gemma.embed_tokens(self.image_suffix_ids.expand(b, -1))
-        hidden = self.gemma(torch.cat([proj, suffix.to(dtype)], dim=1))
-        return self._head(hidden)
+        x = torch.cat([proj, suffix.to(dtype)], dim=1)
+        sp = sp_mesh_for(x.shape[1])
+        return gather_tokens(self._head(self.gemma(x, sp=sp)), sp)
 
     def text_fwd(self, input_ids: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """input_ids [B, T] -> per-token embeddings [B, T, D] f32, pad tokens
         exact zeros."""
         if mask is None:
             mask = torch.ones_like(input_ids)
-        hidden = self.gemma(self.gemma.embed_tokens(input_ids), attn_mask=mask)
-        return self._head(hidden) * mask[:, :, None].float()
+        sp = sp_mesh_for(input_ids.shape[1])
+        hidden = self.gemma(self.gemma.embed_tokens(input_ids), attn_mask=mask, sp=sp)
+        return gather_tokens(self._head(hidden), sp) * mask[:, :, None].float()
 
     # the encoding engine's interface (models/encode.py)
     encode_image = image_fwd

@@ -25,6 +25,8 @@ from typing import Any
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
+from ..parallel.sp import shard_tokens
 from .decoder_attn import decode_attention, grouped_attention
 from .layers import matmul_f32
 
@@ -33,10 +35,16 @@ class DecoderLayer(nn.Module):
     """One pre-norm layer: ``ln1``, ``attn.{q,k,v,o,...}``, ``ln2``,
     ``mlp.{...}``. A subclass gives ``norm`` (its RMSNorm, ``(w, x, eps)``),
     ``qkv`` (projections, any head norm and rope: q [B, T, H, Dh], k and v
-    [B, T, KVH, Dh]) and ``mlp_out``."""
+    [B, T, KVH, Dh], H and KVH read off the weights) and ``mlp_out``.
+
+    Under tensor parallelism ``parallel/tp.py`` keeps this rank's heads and
+    MLP columns and sets ``attn_group`` / ``mlp_group``, the model-axis group
+    that sums the row-split ``o`` / ``down`` products."""
 
     cfg: Any
     norm: Any
+    attn_group = None
+    mlp_group = None
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         raise NotImplementedError
@@ -44,15 +52,16 @@ class DecoderLayer(nn.Module):
     def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, h, positions, key_mask, causal: bool):
+    def forward(self, h, positions, key_mask, causal: bool, sp=None):
         """[B, T, D] -> (h, k, v): the layer's output and its rope'd keys and
-        values, which the prefill caches."""
+        values, which the prefill caches. With ``sp`` (a sequence-parallel
+        mesh) h, positions and key_mask are this rank's token shard."""
         eps = self.cfg.rms_eps
         q, k, v = self.qkv(self.norm(self.ln1, h, eps), positions)
         out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal,
-                                sm_scale=1.0 / math.sqrt(self.cfg.head_dim))
-        h = h + out @ self.attn["o"]
-        return h + self.mlp_out(self.norm(self.ln2, h, eps)), k, v
+                                sm_scale=1.0 / math.sqrt(self.cfg.head_dim), sp=sp)
+        h = h + all_reduce_sum(out @ self.attn["o"], self.attn_group)
+        return h + all_reduce_sum(self.mlp_out(self.norm(self.ln2, h, eps)), self.mlp_group), k, v
 
     def decode(self, h, positions, k_cache, v_cache, write_idx: int, cache_valid) -> torch.Tensor:
         """One token a row, h [B, 1, D]: writes its k and v at cache slot
@@ -80,10 +89,14 @@ class DecoderLM(nn.Module):
     def head(self) -> torch.Tensor:
         raise NotImplementedError
 
-    def hidden_states(self, x: torch.Tensor, attn_mask: torch.Tensor | None, causal: bool) -> torch.Tensor:
+    def hidden_states(self, x: torch.Tensor, attn_mask: torch.Tensor | None, causal: bool,
+                      sp=None) -> torch.Tensor:
         """inputs_embeds [B, T, D] -> final hidden [B, T, D]. attn_mask [B, T]
         (nonzero = valid) is a key mask with positions cumsum(mask) - 1 (left
-        padding); without one every key is valid."""
+        padding); without one every key is valid. With ``sp`` (a
+        sequence-parallel mesh whose model axis divides T) the stack runs on
+        this rank's token shard and returns it, [B, T / n, D]; the positions
+        are counted over the whole sequence first."""
         b, t, _ = x.shape
         if attn_mask is None:
             positions = torch.arange(t, device=x.device).expand(b, t)
@@ -91,8 +104,11 @@ class DecoderLM(nn.Module):
         else:
             positions = torch.cumsum(attn_mask.long(), dim=-1) - 1
             key_mask = attn_mask > 0
+        if sp is not None:
+            x, positions = shard_tokens(x, sp), shard_tokens(positions, sp)
+            key_mask = None if key_mask is None else shard_tokens(key_mask, sp)
         for layer in self.layers:
-            x = layer(x, positions, key_mask, causal)[0]
+            x = layer(x, positions, key_mask, causal, sp)[0]
         return self.norm(self.final_norm, x, self.cfg.rms_eps)
 
     def lm_logits(self, hidden: torch.Tensor) -> torch.Tensor:

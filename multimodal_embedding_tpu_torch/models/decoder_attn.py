@@ -15,7 +15,12 @@ The implementation follows ``layers.set_attention_impl``:
 - "xla" / "xla_bf16" ("auto" on the CPU): einsum attention with f32 (or
   model-dtype) logits and finite ``-1e30`` masking, as the JAX function's
   XLA branch, not the ``-inf`` of ``layers.attention_core``.
-The sequence-parallel branch is not yet ported.
+- sequence parallelism (``sp``, a mesh given by the caller where its model
+  axis divides the sequence, ``parallel/sp.py:sp_mesh_for``): q, k and v are
+  this rank's token shard and ``parallel/sp.py:sp_attention`` gathers K and
+  V, before any other branch. Where the axis does not divide the sequence
+  the caller passes none, and every rank runs the whole sequence, as the
+  JAX function falls through.
 
 :func:`decode_attention` is one generation step's attention over a KV cache,
 the einsum of the JAX decode steps (``models/qwen3.py:192-198``,
@@ -41,10 +46,17 @@ def grouped_attention(
     key_mask: torch.Tensor | None,
     causal: bool,
     sm_scale: float,
+    sp=None,
 ) -> torch.Tensor:
     """Self-attention over grouped heads -> [B, T, H*Dh] (q's dtype)."""
     b, t, heads, dh = q.shape
     kv_heads = k.shape[2]
+    if sp is not None:
+        from ..parallel.sp import sp_attention
+
+        out = sp_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), sp, key_mask=key_mask,
+                           causal=causal, sm_scale=sm_scale)
+        return out.transpose(1, 2).reshape(b, t, heads * dh)
     impl = attention_impl_for(q)
     if impl == "pallas":
         from ..ops.attention_cuda import fused_attention

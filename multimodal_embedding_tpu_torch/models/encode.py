@@ -25,6 +25,14 @@ Transport: "device" ships native uint8 images and resizes them on the
 device; "host" resizes and crops them with PIL on ``host_workers`` threads
 and ships crop-sized uint8 (normalized on the device in plain PyTorch);
 "auto" takes "host" when the measured host->device rate is below 1000 MB/s.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): the batch is rounded down
+to a multiple of the data axis (as the JAX engine does); each data rank
+stages and encodes its rows of every padded batch, and the embeddings are
+gathered in the original order. Token ids come from rank 0, broadcast to
+every rank (the debug tokenizer's hash is salted per process). Under tensor
+parallelism (``layers.set_tp_mesh``) the engine splits the model's weights
+once (``parallel/tp.py:shard_params_tp``).
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ import torch
 
 from ..ops.preprocess import host_resize_crop, make_normalize_fn, make_preprocess_fn
 from ..ops.preprocess_cuda import make_preprocess_cuda_fn
+from ..parallel.batched import gather_batches, local_slice, pad_to_multiple, sharded_batch_apply
+from ..parallel.mesh import Mesh, gather_rows, shard_rows, share_from_rank0
 from ..utils.timing import hard_sync
 from .layers import l2_normalize
 from .zoo import LoadedModel
@@ -94,16 +104,26 @@ class DeviceImageCache:
     stage_seconds: float
 
 
-def _group_buffer(images: list[np.ndarray], idxs: list[int], h: int, w: int, batch_size: int) -> np.ndarray:
-    """Native HWC images -> one padded [nb, B, 3, H, W] uint8 host buffer
-    (padding repeats the last image)."""
+def data_batch(batch_size: int, mesh: Mesh | None) -> int:
+    """The batch rounded down to a multiple of the data axis (at least one
+    row a data rank), as the JAX engine rounds it."""
+    n_data = 1 if mesh is None else mesh.n_data
+    return max(batch_size, n_data) // n_data * n_data
+
+
+def _group_buffer(images: list[np.ndarray], idxs: list[int], h: int, w: int, batch_size: int,
+                  mesh: Mesh | None = None) -> np.ndarray:
+    """Native HWC images -> this data rank's rows of the padded batches, one
+    [nb, B / n_data, 3, H, W] uint8 host buffer (padding repeats the last
+    image)."""
     count = len(idxs)
     nb = -(-count // batch_size)
-    buf = np.empty((nb * batch_size, 3, h, w), np.uint8)
-    for j, i in enumerate(idxs):
-        buf[j] = images[i].transpose(2, 0, 1)
-    buf[count:] = buf[count - 1]
-    return buf.reshape(nb, batch_size, 3, h, w)
+    rows = local_slice(batch_size, mesh)
+    buf = np.empty((nb, rows.stop - rows.start, 3, h, w), np.uint8)
+    for b in range(nb):
+        for j, pos in enumerate(range(b * batch_size + rows.start, b * batch_size + rows.stop)):
+            buf[b, j] = images[idxs[min(pos, count - 1)]].transpose(2, 0, 1)
+    return buf
 
 
 def _slice_batches(batch_size: int, h: int, w: int) -> int:
@@ -125,13 +145,15 @@ def _group_layout(images: list[np.ndarray], batch_size: int):
     return groups_idx, plan
 
 
-def stage_images(images: list[np.ndarray], batch_size: int, device) -> DeviceImageCache:
-    """One-time host->device staging of native uint8 images."""
+def stage_images(images: list[np.ndarray], batch_size: int, device, mesh: Mesh | None = None) -> DeviceImageCache:
+    """One-time host->device staging of native uint8 images (this data
+    rank's rows of each batch under a ``mesh``)."""
     t0 = time.perf_counter()
+    batch_size = data_batch(batch_size, mesh)
     groups_idx, _ = _group_layout(images, batch_size)
     groups = []
     for (h, w), idxs in groups_idx.items():
-        dev = torch.from_numpy(_group_buffer(images, idxs, h, w, batch_size)).to(device)
+        dev = torch.from_numpy(_group_buffer(images, idxs, h, w, batch_size, mesh)).to(device)
         groups.append(((h, w), idxs, dev, len(idxs)))
     hard_sync([g[2] for g in groups])
     return DeviceImageCache(groups, batch_size, len(images), time.perf_counter() - t0)
@@ -148,12 +170,14 @@ class AsyncImageStager:
     which concatenates one geometry at a time and frees its slices before
     the next, so at most one copy of the images and one geometry's slices
     are ever on the card. On the CPU the slices are views of the host
-    buffers and there are no events."""
+    buffers and there are no events. Under a ``mesh`` each rank stages its
+    own rows of every batch; the slice plan is the same on every rank."""
 
-    def __init__(self, images: list[np.ndarray], batch_size: int, device):
+    def __init__(self, images: list[np.ndarray], batch_size: int, device, mesh: Mesh | None = None):
         self._images = images
         self.device = torch.device(device)
-        self.batch_size = batch_size
+        self.mesh = mesh
+        self.batch_size = batch_size = data_batch(batch_size, mesh)
         self._groups_idx, self.slice_plan = _group_layout(images, batch_size)
         self.n_images = len(images)
         # (geometry, indices, [n batches, B, 3, H, W] tensor, valid count, upload event or None)
@@ -187,7 +211,7 @@ class AsyncImageStager:
         try:
             stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
             for (h, w), idxs in self._groups_idx.items():
-                buf = _group_buffer(self._images, idxs, h, w, self.batch_size)
+                buf = _group_buffer(self._images, idxs, h, w, self.batch_size, self.mesh)
                 step = _slice_batches(self.batch_size, h, w)
                 for s in range(0, buf.shape[0], step):
                     dev, event = self._upload(buf[s : s + step], stream)
@@ -268,19 +292,30 @@ class EncodingEngine:
     streaming paths hold native images on the device already."""
 
     def __init__(self, model: LoadedModel, batch_size: int = 32, *, device, preprocess_impl: str = "auto",
-                 transport: str = "auto", host_workers: int = 16):
+                 transport: str = "auto", host_workers: int = 16, mesh: Mesh | None = None):
         if preprocess_impl not in PREPROCESS_IMPLS:
             raise ValueError(f"preprocess impl must be one of {PREPROCESS_IMPLS}, not {preprocess_impl!r}")
         if transport not in TRANSPORTS:
             raise ValueError(f"transport must be one of {TRANSPORTS}, not {transport!r}")
         self.model = model
         self.device = torch.device(device)
-        self.batch_size = batch_size
+        self.mesh = mesh
+        self.batch_size = data_batch(batch_size, mesh)
+        self._local_batch = self.batch_size // (1 if mesh is None else mesh.n_data)
+        from .layers import get_tp_mesh
+
+        if mesh is not None and get_tp_mesh() is not None:
+            from ..parallel.tp import shard_params_tp
+
+            shard_params_tp(model.model, mesh)
         if preprocess_impl == "auto":
             preprocess_impl = "pallas" if self.device.type == "cuda" else "xla"
         self.preprocess_impl = preprocess_impl
         if transport == "auto":
-            transport = "host" if measure_put_bandwidth_mbps(self.device) < 1000.0 else "device"
+            host = measure_put_bandwidth_mbps(self.device) < 1000.0
+            # every rank takes rank 0's choice: the two transports batch differently
+            host = bool(share_from_rank0(np.array([[host]], np.int64), self.device).item())
+            transport = "host" if host else "device"
         self.transport = transport
         self.host_workers = host_workers
         self._pre_fns: dict[tuple[int, int], object] = {}
@@ -319,15 +354,27 @@ class EncodingEngine:
 
     def _encode_group(self, dev: torch.Tensor, h: int, w: int, count: int) -> torch.Tensor:
         """Embeddings of the first ``count`` images of staged batches
-        [nb, B, 3, H, W], batch by batch; a staged batch that is a multiple
-        of this engine's batch is split."""
+        [nb, B, 3, H, W] (this data rank's rows of each), batch by batch,
+        gathered over the data axis; a staged batch that is a multiple of
+        this engine's batch is split."""
         embs = []
+        step_rows = self._local_batch
         for batch_u8 in dev:
             b = batch_u8.shape[0]
-            step = self.batch_size if b % self.batch_size == 0 else b
+            step = step_rows if b % step_rows == 0 else b
             for s in range(0, b, step):
                 embs.append(self._image_batch(batch_u8[s : s + step], h, w))
-        return torch.cat(embs)[:count]
+        return gather_batches(torch.cat(embs), self.mesh, dev.shape[0])[:count]
+
+    def _local_rows(self, batch: np.ndarray) -> np.ndarray:
+        """This data rank's rows of a host batch, padded to a multiple of the
+        data axis by repeating its last row."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return batch
+        n = pad_to_multiple(batch.shape[0], self.mesh.n_data)
+        if n > batch.shape[0]:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], n - batch.shape[0], axis=0)])
+        return shard_rows(batch, self.mesh)
 
     @staticmethod
     def _scatter(chunks: list[tuple[list[int], torch.Tensor]], n: int) -> torch.Tensor:
@@ -359,8 +406,8 @@ class EncodingEngine:
                     pad = self.batch_size - batch.shape[0]
                     if pad:
                         batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
-                    dev = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-                    chunks.append((bidx, self._crop_batch(dev)[: len(bidx)]))
+                    dev = torch.from_numpy(np.ascontiguousarray(self._local_rows(batch))).to(self.device)
+                    chunks.append((bidx, gather_rows(self._crop_batch(dev), self.mesh)[: len(bidx)]))
         else:
             groups: dict[tuple[int, int], list[int]] = {}
             for i, im in enumerate(images):
@@ -369,8 +416,8 @@ class EncodingEngine:
                 for s in range(0, len(idxs), self.batch_size):
                     bidx = idxs[s : s + self.batch_size]
                     batch = np.stack([images[i] for i in bidx]).transpose(0, 3, 1, 2)
-                    dev = torch.from_numpy(np.ascontiguousarray(batch)).to(self.device)
-                    chunks.append((bidx, self._image_batch(dev, h, w)))
+                    dev = torch.from_numpy(np.ascontiguousarray(self._local_rows(batch))).to(self.device)
+                    chunks.append((bidx, gather_rows(self._image_batch(dev, h, w), self.mesh)[: len(bidx)]))
         out = hard_sync(self._scatter(chunks, len(images)))
         return EncodeResult(out, None, time.perf_counter() - t0)
 
@@ -412,24 +459,21 @@ class EncodingEngine:
     def warmup_streaming(self, stager: AsyncImageStager) -> None:
         """First use of every planned slice shape before timing: zeros of each
         (geometry, batches) the stager will hand over go through the encode."""
+        rows = local_slice(stager.batch_size, self.mesh)
         for h, w, nbs in stager.slice_shapes():
-            zeros = torch.zeros((nbs, stager.batch_size, 3, h, w), dtype=torch.uint8, device=self.device)
+            zeros = torch.zeros((nbs, rows.stop - rows.start, 3, h, w), dtype=torch.uint8, device=self.device)
             hard_sync(self._encode_group(zeros, h, w, nbs * stager.batch_size))
 
     def encode_texts(self, texts: list[str]) -> EncodeResult:
-        """Tokenize on the host, ship the ids once, encode in batches of
-        ``max(batch, 128)`` (text sequences are short)."""
+        """Tokenize on the host, ship the ids once (rank 0's, broadcast, in a
+        world of more than one rank), encode in batches of ``max(batch,
+        128)`` (text sequences are short), each data rank its rows."""
         t0 = time.perf_counter()
         ids, mask = self.model.tokenize(texts)
-        n = ids.shape[0]
+        ids_d = share_from_rank0(ids.astype(np.int64), self.device)
+        mask_d = share_from_rank0(mask, self.device)
         bs = max(self.batch_size, 128)
-        ids_d = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-        mask_d = None if mask is None else torch.from_numpy(mask).to(self.device)
-        outs = [
-            self._text_batch(ids_d[s : s + bs], None if mask_d is None else mask_d[s : s + bs])
-            for s in range(0, n, bs)
-        ]
-        out = hard_sync(torch.cat(outs))
+        out = hard_sync(sharded_batch_apply(self._text_batch, (ids_d, mask_d), mesh=self.mesh, batch_size=bs))
         out_mask = mask_d if self.model.multi_vector else None
         return EncodeResult(out, out_mask, time.perf_counter() - t0)
 

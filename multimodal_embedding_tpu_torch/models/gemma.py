@@ -101,9 +101,9 @@ class GemmaLayer(DecoderLayer):
     def qkv(self, x, positions):
         cfg, p = self.cfg, self.attn
         b, t, _ = x.shape
-        q = (x @ p["q"]).reshape(b, t, cfg.heads, cfg.head_dim)
-        k = (x @ p["k"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-        v = (x @ p["v"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        q = (x @ p["q"]).reshape(b, t, -1, cfg.head_dim)
+        k = (x @ p["k"]).reshape(b, t, -1, cfg.head_dim)
+        v = (x @ p["v"]).reshape(b, t, -1, cfg.head_dim)
         return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
     def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,8 +134,10 @@ class Gemma(DecoderLM):
         return self.embed.T
 
     def forward(self, inputs_embeds: torch.Tensor, attn_mask: torch.Tensor | None = None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False, sp=None) -> torch.Tensor:
         """``gemma_apply``: inputs_embeds [B, T, D] -> final hidden [B, T, D].
         attn_mask [B, T] (nonzero = valid) is a key mask; without one every
-        token attends to every token (PaliGemma's prefix-LM inference mask)."""
-        return self.hidden_states(inputs_embeds, attn_mask, causal)
+        token attends to every token (PaliGemma's prefix-LM inference mask).
+        With ``sp`` (``parallel/sp.py:sp_mesh_for``) the hidden states of
+        this rank's token shard, [B, T / n, D]."""
+        return self.hidden_states(inputs_embeds, attn_mask, causal, sp)

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # --- ops --------------------------------------------------------------------
@@ -151,6 +152,44 @@ def get_layer_impl() -> str:
     return "xla" if _LAYER_IMPL == "auto" else _LAYER_IMPL
 
 
+# Tensor-parallel mesh (set by the CLI under --tensor-parallel above 1). The
+# weights' split is done once, in place, by ``parallel/tp.py:shard_params_tp``,
+# which the encoding engine calls while this is set; the split modules then
+# carry what their forward needs (their local head count, the model-axis
+# group of a row-split output projection), so each rank's attention runs the
+# kernel on its own heads with no collective.
+_TP_MESH = None
+
+
+def set_tp_mesh(mesh) -> None:
+    """Register the (data, model) mesh of a tensor-parallel run (None to
+    clear). Only a mesh with a model axis above 1 changes behaviour."""
+    global _TP_MESH
+    _TP_MESH = mesh
+
+
+def get_tp_mesh():
+    return _TP_MESH if _TP_MESH is not None and _TP_MESH.n_model > 1 else None
+
+
+# Sequence-parallel mesh (set by the CLI under --sequence-parallel above 1):
+# ColPali's Gemma runs on this rank's shard of the tokens where the model
+# axis divides the sequence (``parallel/sp.py:sp_mesh_for``), its attention
+# all-gathering K and V (``parallel/sp.py:sp_attention``).
+_SP_MESH = None
+
+
+def set_sp_mesh(mesh) -> None:
+    """Register the (data, model) mesh of a sequence-parallel run (None to
+    clear). Only a mesh with a model axis above 1 changes behaviour."""
+    global _SP_MESH
+    _SP_MESH = mesh
+
+
+def get_sp_mesh():
+    return _SP_MESH if _SP_MESH is not None and _SP_MESH.n_model > 1 else None
+
+
 def attention_core(
     qf: torch.Tensor,
     kf: torch.Tensor,
@@ -164,8 +203,9 @@ def attention_core(
     """Scaled-dot-product attention over projected activations.
 
     qf [B, Tq, D]; kf/vf [B, Tk, D]; mask [B, Tk] (nonzero = attend);
-    ``self_attn`` False for cross attention (only "flash" reads it).
-    Returns [B, Tq, D] in qf's dtype (before the output projection)."""
+    ``self_attn`` False for cross attention (only "flash" reads it). Under
+    tensor parallelism D is this rank's column split and ``n_heads`` its
+    heads. Returns [B, Tq, D] in qf's dtype (before the output projection)."""
     b, tq, d = qf.shape
     tk = kf.shape[1]
     dh = d // n_heads
@@ -215,7 +255,13 @@ def _uniform(shape, bound: float, gen: torch.Generator, device, dtype) -> torch.
 
 
 class Linear(nn.Module):
-    """Weight ``w`` [d_in, d_out] (the JAX layout) and bias ``b`` [d_out]."""
+    """Weight ``w`` [d_in, d_out] (the JAX layout) and bias ``b`` [d_out].
+
+    Row-split under tensor parallelism (``reduce_group`` set by
+    ``parallel/tp.py``), ``w`` holds this rank's rows: the partial product
+    is summed over the model axis in x's dtype, then the bias is added once."""
+
+    reduce_group = None
 
     def __init__(self, d_in: int, d_out: int, *, gen: torch.Generator, device, dtype):
         super().__init__()
@@ -224,7 +270,11 @@ class Linear(nn.Module):
         self.b = nn.Parameter(torch.zeros(d_out, device=device, dtype=dtype), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(x, self.w, self.b)
+        if self.reduce_group is None:
+            return linear(x, self.w, self.b)
+        y = torch.matmul(x, self.w)
+        dist.all_reduce(y, group=self.reduce_group)
+        return y + self.b
 
 
 class LayerNorm(nn.Module):
@@ -241,7 +291,10 @@ class LayerNorm(nn.Module):
 class MultiHeadAttention(nn.Module):
     """q/k/v/o projections around :func:`attention_core`; with ``kv`` given,
     cross attention (q from ``x``, k and v from ``kv``), as the siglip MAP
-    head runs it."""
+    head runs it. Under tensor parallelism ``parallel/tp.py`` splits the
+    heads (``n_heads`` becomes this rank's), or, where they do not divide the
+    model axis, keeps the weights whole: every rank then runs the one-rank
+    layer."""
 
     def __init__(self, dim: int, n_heads: int, *, gen, device, dtype):
         super().__init__()
@@ -319,6 +372,8 @@ class Encoder(nn.Module):
         from ..ops.attention_cuda import fused_attention_qkv
         from ..ops.fused_ln_matmul_cuda import fused_res_norm_matmul
 
+        if get_tp_mesh() is not None:
+            raise ValueError("--layer-impl fused does not take tensor-parallel weights; use xla")
         d = x.shape[-1]
         use_qkv_kernel = attention_impl_for(x) == "pallas"
         h, delta = x, None

@@ -96,9 +96,9 @@ class Qwen3Layer(DecoderLayer):
         """``_qkv``: projections, the per-head QK-RMSNorm, then rope."""
         cfg, p = self.cfg, self.attn
         b, t, _ = x.shape
-        q = (x @ p["q"]).reshape(b, t, cfg.heads, cfg.head_dim)
-        k = (x @ p["k"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
-        v = (x @ p["v"]).reshape(b, t, cfg.kv_heads, cfg.head_dim)
+        q = (x @ p["q"]).reshape(b, t, -1, cfg.head_dim)
+        k = (x @ p["k"]).reshape(b, t, -1, cfg.head_dim)
+        v = (x @ p["v"]).reshape(b, t, -1, cfg.head_dim)
         q = qwen3_rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = qwen3_rms_norm(p["k_norm"], k, cfg.rms_eps)
         return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v

@@ -199,12 +199,23 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
     return out
 
 
-def maxsim_scores(q, d, q_mask=None, d_mask=None, *, impl: str = "auto") -> torch.Tensor:
+def maxsim_scores(q, d, q_mask=None, d_mask=None, *, impl: str = "auto", mesh=None) -> torch.Tensor:
     """MaxSim scores [NQ, ND] (float32). impl: "auto" or "pallas" (the
     kernel; the name of the TPU package's kernel route) for CUDA tensors,
-    "xla" the plain version; CPU tensors always take the plain version."""
+    "xla" the plain version; CPU tensors always take the plain version. With
+    a ``mesh`` whose data axis is above 1, the query rows (and ``q_mask``)
+    are padded to a multiple of it and each data rank scores its block
+    against every doc (the kernel runs on that block); the blocks are
+    gathered in order."""
     if impl not in IMPLS:
         raise ValueError(f"maxsim impl must be one of {IMPLS}, not {impl!r}")
-    if q.device.type == "cpu" or impl == "xla":
-        return maxsim_scores_ref(q, d, q_mask, d_mask)
-    return maxsim_cuda(q, d, q_mask, d_mask)
+    plain = q.device.type == "cpu" or impl == "xla"
+
+    def score(qb, qmb):
+        return maxsim_scores_ref(qb, d, qmb, d_mask) if plain else maxsim_cuda(qb, d, qmb, d_mask)
+
+    if mesh is None or mesh.n_data == 1:
+        return score(q, q_mask)
+    from ..parallel.batched import sharded_batch_apply
+
+    return sharded_batch_apply(score, (q, q_mask), mesh=mesh, batch_size=q.shape[0])

@@ -19,6 +19,13 @@ integer.
 The JAX package draws samples with ``jax.random``, which PyTorch cannot
 reproduce (COMPAT #6): pass ``sample_idx`` to replay given samples, else
 they are drawn from a ``torch.Generator`` seeded with ``seed``.
+
+With a ``mesh`` whose data axis is above 1 the iterations are split over it:
+every rank draws the whole index tensor from the one seeded generator (the
+JAX package folds the iteration into its key instead; a ``torch.Generator``
+has no such fold), runs its own block of iterations, and the blocks are
+gathered. Every count is an exact integer in f32, so the result is bit-equal
+to one rank's.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ def bootstrap_benchmark(
     ks: tuple[int, ...] = DEFAULT_KS,
     caps_per_image: int = 5,
     sample_idx: np.ndarray | torch.Tensor | None = None,
+    mesh=None,
 ) -> BootstrapOutput:
     """scores_t2i [N, N] (rows = first-caption queries, cols = images, target
     on the diagonal); scores_i2t [N, K*N] (caption block K*i..K*i+K-1 belongs
@@ -96,32 +104,43 @@ def bootstrap_benchmark(
     # percent of queries, rounded as the JAX package's compiled
     # 100 * mean(hits) is: the hit count times the folded f32 constant 100/N
     pct = torch.tensor(np.float32(np.float32(1.0 / n) * np.float32(100.0)), device=dev)
-    mets, correct = [], []
-    for s in range(0, n_iterations, _ITER_CHUNK):
-        idx = idx_all[s : s + _ITER_CHUNK]  # [I, N]
-        m = torch.zeros(idx.shape[0], n, device=dev).scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.float32))
-        m_cap = m.repeat_interleave(kc, dim=1)  # caption multiplicities, block layout
-        v_t2i = m @ c_t2i.T  # [I, N]
-        v_sym = m @ c_sym.T
-        dup = _dup_before(idx).float()
-        rank_t2i = v_t2i.gather(1, idx) + dup
-        rank_sym = v_sym.gather(1, idx) + dup
-        # per threshold: strict-greater count + duplicate-block ties before
-        # the target + earlier in-block ties; the best caption wins
-        rank_i2t = torch.stack(
-            [(m_cap @ g[t].T).gather(1, idx) + dup * q_ties[idx, t] + e_lt[idx, t] for t in range(kc)]
-        ).amin(dim=0)
-        cols = []
-        for ranks, limit in ((rank_t2i, n), (rank_i2t, kc * n), (rank_sym, n)):
-            for k in ks:
-                cols.append((ranks < min(k, limit)).float().sum(dim=1) * pct)
-        mets.append(torch.stack(cols, dim=1))
-        correct.append(rank_t2i < 1)
 
-    met_arr = np.clip(torch.cat(mets).cpu().numpy(), 0.0, 100.0)
+    def run(idx_rows: torch.Tensor) -> torch.Tensor:
+        """[I, N] samples -> [I, 9 + N]: the metrics, then T2I R@1 hits (0/1)."""
+        out = []
+        for s in range(0, idx_rows.shape[0], _ITER_CHUNK):
+            idx = idx_rows[s : s + _ITER_CHUNK]  # [I, N]
+            m = torch.zeros(idx.shape[0], n, device=dev).scatter_add_(
+                1, idx, torch.ones_like(idx, dtype=torch.float32))
+            m_cap = m.repeat_interleave(kc, dim=1)  # caption multiplicities, block layout
+            v_t2i = m @ c_t2i.T  # [I, N]
+            v_sym = m @ c_sym.T
+            dup = _dup_before(idx).float()
+            rank_t2i = v_t2i.gather(1, idx) + dup
+            rank_sym = v_sym.gather(1, idx) + dup
+            # per threshold: strict-greater count + duplicate-block ties before
+            # the target + earlier in-block ties; the best caption wins
+            rank_i2t = torch.stack(
+                [(m_cap @ g[t].T).gather(1, idx) + dup * q_ties[idx, t] + e_lt[idx, t] for t in range(kc)]
+            ).amin(dim=0)
+            cols = []
+            for ranks, limit in ((rank_t2i, n), (rank_i2t, kc * n), (rank_sym, n)):
+                for k in ks:
+                    cols.append((ranks < min(k, limit)).float().sum(dim=1) * pct)
+            out.append(torch.cat([torch.stack(cols, dim=1), (rank_t2i < 1).float()], dim=1))
+        return torch.cat(out)
+
+    if mesh is None or mesh.n_data == 1:
+        res = run(idx_all)
+    else:
+        from ..parallel.batched import sharded_batch_apply
+
+        res = sharded_batch_apply(run, idx_all, mesh=mesh, batch_size=n_iterations)
+    n_met = 3 * len(ks)
+    met_arr = np.clip(res[:, :n_met].cpu().numpy(), 0.0, 100.0)
     names = [f"T2I_R@{k}" for k in ks] + [f"I2T_R@{k}" for k in ks] + [f"I2T_Sym_R@{k}" for k in ks]
     return BootstrapOutput(
         metrics={name: met_arr[:, i] for i, name in enumerate(names)},
-        correct_r1=torch.cat(correct).cpu().numpy(),
+        correct_r1=(res[:, n_met:] > 0).cpu().numpy(),
         sample_idx=idx_all.to(torch.int32).cpu().numpy(),
     )

@@ -39,7 +39,7 @@ def dataset_fingerprint(records: list[dict]) -> str:
 def numerics_fingerprint(preprocess_impl: str = "auto", maxsim_impl: str = "auto", *, device) -> str:
     """Everything that changes the score matrices' numerics, so that a rerun
     under other implementations or on another device misses the cache."""
-    from ..models.layers import get_attention_impl, get_layer_impl
+    from ..models.layers import get_attention_impl, get_layer_impl, get_sp_mesh, get_tp_mesh
 
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -49,6 +49,10 @@ def numerics_fingerprint(preprocess_impl: str = "auto", maxsim_impl: str = "auto
     # as ops/maxsim_cuda.py:maxsim_scores routes: CPU tensors take the plain version
     maxsim_impl = "xla" if not on_card or maxsim_impl == "xla" else "pallas"
     key = f"torch-{kind}-{get_attention_impl(dev)}-{get_layer_impl()}-{preprocess_impl}-{maxsim_impl}"
+    # tensor and sequence parallelism sum in another order; data parallelism does not
+    for tag, mesh in (("tp", get_tp_mesh()), ("sp", get_sp_mesh())):
+        if mesh is not None:
+            key += f"-{tag}{mesh.n_model}"
     return re.sub(r"[^A-Za-z0-9_.-]", "_", key)
 
 

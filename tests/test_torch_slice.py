@@ -9,10 +9,10 @@ bootstrap samples and CI resamples replayed, each metric agrees to within
 one query of N (a score pair closer than the 1e-4 tolerance may order
 differently in the two packages).
 
-Also here: the port imports nothing of JAX or the JAX package, its copies of
-the JAX-free host modules behave the same, and its CLI refuses to run on the
-CPU unless asked to and refuses the flags it does not carry yet (tensor and
-sequence parallelism).
+Also here: the port imports nothing of JAX or the JAX package (its
+``parallel/`` package included), its copies of the JAX-free host modules
+behave the same, and its CLI refuses to run on the CPU unless asked to and,
+in a world of one rank, refuses a model axis of 2 with the JAX CLI's words.
 """
 
 import ast
@@ -127,9 +127,12 @@ def test_cli_refuses_cpu_unless_asked(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--tensor-parallel", "2"], ["--sequence-parallel", "2"]])
 def test_cli_rejects_unported_flags(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
+    """Both flags are ported; one process is a world of one rank, which a
+    model axis of 2 does not fit (the JAX CLI's ``get_mesh`` error)."""
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tcli.main(["--device", "cpu", "--dataset", "synthetic", "--sample-size", "4",
                    "--output", str(tmp_path / "x.csv"), "--debug-models", *flags])
+    assert not (tmp_path / "x.csv").exists()
 
 
 @pytest.mark.parametrize("flags", [
@@ -138,7 +141,7 @@ def test_cli_rejects_unported_flags(tmp_path, flags):
     ["--score-cache-dir", "scores"], ["--no-overlap-staging"],
 ])
 def test_cli_accepts_ported_flags(flags):
-    tcli._reject_unported(tcli.parse_args(["--device", "cpu", "--debug-models", *flags]))
+    tcli.check_parallel_flags(tcli.parse_args(["--device", "cpu", "--debug-models", *flags]))
 
 
 def _imports(path: Path) -> set[str]:
@@ -154,6 +157,8 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_no_jax():
     files = sorted((ROOT / "multimodal_embedding_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    parallel = {f.name for f in files if f.parent.name == "parallel"}
+    assert {"mesh.py", "batched.py", "tp.py", "sp.py"} <= parallel, parallel
     bad = {
         str(f.relative_to(ROOT)): m
         for f in files
