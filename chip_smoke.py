@@ -18,7 +18,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
      rank's ViT-L heads under ``--tensor-parallel 2``, ``[64,577,8x64]``, and
      the shapes phase 10 launches a rank (``[32,577,8x64]``, the text shard
      ``[128,77,6x64]`` causal with a mask; under data parallelism
-     ``[16,577,16x64]`` and ``[64,77,12x64]``); plus
+     ``[16,577,16x64]`` and ``[64,77,12x64]``); one rank's Qwen3-14B heads
+     under tensor parallelism 2, ``[8,272,20x128]`` and ``[8,224,20x128]``
+     over 4 KV heads, causal and left-padded (phase 11's passes); plus
      attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
      checked on its first 64 queries),
      with the tolerances stated below, and time both, the one
@@ -125,6 +127,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
      finite); each rank's launches, peak device memory and seconds. Its QPS is
      two processes time-slicing one card with collectives through host
      memory, not a scaling figure.
+ 11. Workload B on a (data, model) mesh, two ranks sharing the card through
+     gloo, started by torchrun as this script with ``--grpo-rank``: one
+     ``GRPOTrainer`` step of Qwen3-14B at full width and all 40 layers split
+     over the two ranks (arch-random, bf16, LoRA rank 16 with ``b`` drawn at
+     std 0.02; one support ticket bucketed to 224 tokens, a group of 8, 48
+     sampled tokens; each rank's weights drawn on the card a layer at a time
+     and split as they come): each part's seconds, the peak device memory a
+     rank, 40 attention launches in each pass a rank at ``[8,224,20x128]``
+     (the rollout prefill) and ``[8,272,20x128]`` (the reference and loss
+     passes), the adapters bit-equal on both ranks after the step, loss and
+     kl finite; then the same model cut to 4 layers, one ``loss_and_grads``
+     split over the ranks against one rank alone on the same weights,
+     adapters and completions (each adapter gradient's cosine >= 0.999; loss,
+     pg and kl within 2%; the greedy rollout of 8 tickets, its token equal to
+     one rank's in >= 90% of positions, each fed one rank's tokens before it;
+     the free-running share and one rank's own flips beside it) and, on the
+     f32 weights, on half the group a rank (cosine >= 0.99999, loss within
+     1e-4; the same in bf16 reported beside it), each side's adapters
+     bit-equal across the ranks after AdamW;
+     finally ``dryrun_multichip(2)`` on the card. Two processes time-slice
+     one card with collectives through host memory: not a scaling figure.
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
@@ -135,7 +158,9 @@ and numpy.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import math
 import statistics
@@ -751,6 +776,15 @@ def attention_cases() -> list[tuple[str, dict]]:
         # Workload B's training (phase 9): GRPO's forwards over a group of 8,
         # a support ticket bucketed to 224 tokens plus 48 completion tokens
         _grpo_attention_case(),
+        # Workload B on a (data, model) mesh (phase 11): one rank's Qwen3-14B
+        # heads under tensor parallelism 2 (20 query heads over 4 KV heads),
+        # the GRPO passes at 272 tokens and the rollout prefill at 224
+        ("qwen3-14b grpo tp2 shard packed gqa causal+mask, left-padded", dict(
+            b=8, h=20, kvh=4, t=272, dh=128, dtype=torch.bfloat16, causal=True, masked=True, layout="packed",
+            full_mask_rows=True, left_padded=True)),
+        ("qwen3-14b rollout prefill tp2 shard packed gqa causal+mask, left-padded", dict(
+            b=8, h=20, kvh=4, t=224, dh=128, dtype=torch.bfloat16, causal=True, masked=True, layout="packed",
+            full_mask_rows=True, left_padded=True)),
     ]
 
 
@@ -2089,25 +2123,15 @@ def _grpo_consistency(dev) -> dict:
     return out
 
 
-def _grpo_training(dev) -> dict:
-    """QWEN3_14B at full depth in bf16: ``GRPOTrainer.train`` on
-    ``GRPO_PROMPTS`` support tickets at ``grad_accum`` ``GRPO_ACCUM``, each
-    step's parts timed and its attention launches counted apart."""
+def _timed_train(trainer, tickets: list[dict]) -> dict:
+    """``trainer.train(tickets)`` with each prompt's parts timed (rollout,
+    reference pass, loss forward + backward, optimizer) and the attention
+    launches of each part counted apart."""
     import torch
 
-    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
     from multimodal_embedding_tpu_torch.ops import attention_cuda
     from multimodal_embedding_tpu_torch.rl import grpo
-    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
-    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    model = Qwen3(QWEN3_14B, gen=torch.Generator(device=dev).manual_seed(6), device=dev, dtype=torch.bfloat16)
-    cfg = grpo.GRPOConfig(group_size=8, epochs=1, grad_accum=GRPO_ACCUM, max_new_tokens=48)
-    trainer = grpo.GRPOTrainer(model, support_ticket_reward, cfg)
-    _random_b(trainer, seed=7)
-    before = {n: {p: x.detach().clone() for p, x in ab.items()} for n, ab in trainer.adapters.items()}
     parts: list[dict] = []
     completion_logps = grpo._completion_logps
 
@@ -2129,25 +2153,50 @@ def _grpo_training(dev) -> dict:
     def logps(*a, **kw):  # the ref pass runs without grad; the loss pass's forward is timed with its backward
         return completion_logps(*a, **kw) if torch.is_grad_enabled() else ref_pass(*a, **kw)
 
-    trainer.rollout = timed("rollout", trainer.rollout)
-    trainer.loss_and_grads = timed("loss_fwd_bwd", trainer.loss_and_grads)
-    trainer._update = timed("optimizer", trainer._update)
+    wrapped = {"rollout": "rollout", "loss_and_grads": "loss_fwd_bwd", "_update": "optimizer"}
+    for attr, part in wrapped.items():
+        setattr(trainer, attr, timed(part, getattr(trainer, attr)))
     grpo._completion_logps = logps
     try:
         attention_cuda.launches = 0
         t0 = time.perf_counter()
-        stats = trainer.train(generate_support_tickets(GRPO_PROMPTS, seed=45))
+        stats = trainer.train(tickets)
         train_s = time.perf_counter() - t0
         launches = attention_cuda.launches
     finally:
         grpo._completion_logps = completion_logps
+        for attr in wrapped:  # the wrappers hold the trainer: a cycle that would keep its model on the card
+            delattr(trainer, attr)
+    return {"train_s": train_s, "per_prompt": parts, "stats": stats, "attention_launches": launches}
+
+
+def _grpo_training(dev) -> dict:
+    """QWEN3_14B at full depth in bf16: ``GRPOTrainer.train`` on
+    ``GRPO_PROMPTS`` support tickets at ``grad_accum`` ``GRPO_ACCUM``, each
+    step's parts timed and its attention launches counted apart."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.rl import grpo
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Qwen3(QWEN3_14B, gen=torch.Generator(device=dev).manual_seed(6), device=dev, dtype=torch.bfloat16)
+    cfg = grpo.GRPOConfig(group_size=8, epochs=1, grad_accum=GRPO_ACCUM, max_new_tokens=48)
+    trainer = grpo.GRPOTrainer(model, support_ticket_reward, cfg)
+    _random_b(trainer, seed=7)
+    before = {n: {p: x.detach().clone() for p, x in ab.items()} for n, ab in trainer.adapters.items()}
+    run = _timed_train(trainer, generate_support_tickets(GRPO_PROMPTS, seed=45))
+    stats, parts, launches = run["stats"], run["per_prompt"], run["attention_launches"]
     peak = torch.cuda.max_memory_allocated(dev)
     total = torch.cuda.get_device_properties(dev).total_memory
     moved = {f"{n}.{p}": float((x.detach() - before[n][p]).abs().max()) for n, ab in trainer.adapters.items()
              for p, x in ab.items()}
     steps = int(trainer.opt.state[trainer._params[0]]["step"])
     L = QWEN3_14B.layers
-    out = {"train_s": train_s, "prompts": GRPO_PROMPTS, "optimizer_steps": steps, "per_prompt": parts,
+    out = {"train_s": run["train_s"], "prompts": GRPO_PROMPTS, "optimizer_steps": steps, "per_prompt": parts,
            "stats": stats, "adapter_max_move": moved, "attention_launches": launches,
            "peak_memory_bytes": peak, "device_memory_bytes": total}
     require(steps == GRPO_PROMPTS // GRPO_ACCUM and len(parts) == GRPO_PROMPTS
@@ -2467,6 +2516,323 @@ def phase_parallel(kernels: list[dict]) -> None:
     print(f"[phase10] {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 11: Workload B on a (data, model) mesh, two ranks on the one card ---------
+
+TP_GRPO_RANKS = 2
+TP_GRPO_TIMEOUT_S = 600
+# tensor parallelism 2 against one rank, the 4-layer cut in bf16: each
+# adapter gradient's cosine, loss, pg and kl, and the greedy rollout's tokens
+# position by position, each fed one rank's tokens before it (bf16 sums in
+# another order move near-ties; free-running, one flip changes the rest of
+# its row, which is reported beside it)
+TP_GRAD_COSINE_MIN = 0.999
+TP_LOSS_REL_TOL = 2e-2
+TP_GREEDY_EQUAL_MIN = 0.9
+# data parallelism 2 against one rank on the f32 weights: the same kernels on
+# half the group a rank
+DP_GRAD_COSINE_MIN = 0.99999
+DP_LOSS_REL_TOL = 1e-4
+TP_SHAPES = [(8, 224, 20 * 128), (8, 272, 20 * 128)]  # one rank's q: the rollout prefill, the GRPO passes
+
+
+@contextlib.contextmanager
+def _q_shapes():
+    """The q shapes the attention wrapper sees in the body of a ``with``."""
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+
+    shapes: set = set()
+    real = attention_cuda.fused_attention
+
+    def recording(q, *a, **kw):
+        shapes.add(tuple(q.shape))
+        return real(q, *a, **kw)
+
+    attention_cuda.fused_attention = recording
+    try:
+        yield shapes
+    finally:
+        attention_cuda.fused_attention = real
+
+
+def _adapter_crcs(adapters) -> dict:
+    """crc32 of each adapter's bytes: equal across ranks iff bit-equal."""
+    return {f"{n}.{p}": zlib.crc32(x.detach().cpu().numpy().tobytes()) for n, ab in adapters.items()
+            for p, x in ab.items()}
+
+
+def _qwen3_tp_shard(cfg, mesh, seed: int, dev):
+    """This rank's shard of an arch-random Qwen3 in bf16, drawn on the card
+    layer by layer from one generator (the draws of ``Qwen3(cfg, gen=...)``),
+    each layer split as it is made: the card holds this rank's slices and
+    one whole layer at most, never the whole model."""
+    import dataclasses
+
+    import torch
+    from torch import nn
+
+    from multimodal_embedding_tpu_torch.models.qwen3 import Qwen3, Qwen3Layer
+    from multimodal_embedding_tpu_torch.parallel.tp import shard_params_tp
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    layers = [shard_params_tp(Qwen3Layer(cfg, gen=gen, device=dev, dtype=torch.bfloat16), mesh)
+              for _ in range(cfg.layers)]
+    model = Qwen3(dataclasses.replace(cfg, layers=0), gen=gen, device=dev, dtype=torch.bfloat16)
+    model.cfg, model.layers = cfg, nn.ModuleList(layers)
+    return model
+
+
+def _rank_tp_training(dev, report: dict) -> None:
+    """Part 1: one GRPO step of Qwen3-14B at full width and depth, split
+    over the two ranks (one ticket, a group of 8, 48 sampled tokens)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B
+    from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh
+    from multimodal_embedding_tpu_torch.rl import grpo
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    mesh = get_mesh(1, TP_GRPO_RANKS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = _qwen3_tp_shard(QWEN3_14B, mesh, seed=6, dev=dev)
+    torch.cuda.synchronize()
+    build_s, weight_bytes = time.perf_counter() - t0, torch.cuda.memory_allocated(dev)
+    cfg = grpo.GRPOConfig(group_size=8, epochs=1, grad_accum=1, max_new_tokens=48)
+    trainer = grpo.GRPOTrainer(model, support_ticket_reward, cfg, mesh=mesh)
+    _random_b(trainer, seed=7)
+    with _q_shapes() as shapes:
+        run = _timed_train(trainer, generate_support_tickets(1, seed=45))
+    report["tp2 qwen3-14b"] = {
+        **run, "build_s": build_s, "weight_bytes": weight_bytes, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "q_shapes": sorted(shapes), "optimizer_steps": int(trainer.opt.state[trainer._params[0]]["step"]),
+        "adapter_crc": _adapter_crcs(trainer.adapters)}
+    del model, trainer
+    torch.cuda.empty_cache()
+
+
+def _greedy_agreement(one, tp, dev) -> dict:
+    """Greedy rollouts (48 tokens) of 8 support tickets, each row its own
+    ticket, from the split policy against one rank's on the same adapters.
+    ``greedy_equal``: the share of equal tokens, where one flipped near-tie
+    changes the rest of its row. ``teacher_forced_argmax_equal``: the share
+    of positions where the split policy's argmax, fed one rank's tokens, is
+    one rank's token: each position once, no cascade (the gate). Beside it,
+    ``one_rank_self_equal``: one rank's own full forward against its own
+    decode steps, the floor of such flips with no split at all."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.generate import generate
+
+    tk, max_len = one.tokenizer, one.cfg.max_prompt_len
+    ids = [tk.encode(tk.format_prompt(t["prompt"], None), max_len) for t in generate_support_tickets(8, seed=46)]
+    p_ids, p_mask = (torch.from_numpy(x).to(dev) for x in tk.pad_left(ids, max_len=-(-max(map(len, ids)) // 32) * 32))
+    policies = {"one": one.policy(), "tp2": tp.policy()}
+    tokens = {tag: generate(m, p_ids, p_mask, 48, greedy=True)[0] for tag, m in policies.items()}
+    same = (tokens["tp2"] == tokens["one"]).float()
+    full = torch.cat([p_ids, tokens["one"].to(p_ids.dtype)], dim=1)
+    mask = torch.cat([p_mask, torch.ones_like(tokens["one"], dtype=p_mask.dtype)], dim=1)
+    t = p_ids.shape[1]
+    with torch.no_grad():
+        argmax = {tag: m.lm_logits(m(m.embed_tokens(full), mask, True)[:, t - 1 : -1]).argmax(-1)
+                  for tag, m in policies.items()}
+    return {"greedy_equal": float(same.mean()), "greedy_equal_by_row": same.mean(1).tolist(),
+            "prompt_tokens": t, "teacher_forced_argmax_equal": float((argmax["tp2"] == argmax["one"]).float().mean()),
+            "one_rank_self_equal": float((argmax["one"] == tokens["one"]).float().mean())}
+
+
+def _rank_cut_checks(dev, report: dict) -> None:
+    """Parts 2 and 3: Qwen3-14B at full width cut to 4 layers, one
+    ``loss_and_grads`` on the same weights, adapters (``b`` drawn),
+    completions and ``ref_logps`` split over the two ranks (TP 2, bf16) and
+    on half the group a rank (DP 2, on the f32 weights, and in bf16 for the
+    record), each against the same model in the same dtype on this rank
+    alone, then each side's AdamW step; before them, the greedy rollout of
+    the split policy against one rank's. (In bf16 each DP rank's weight
+    gradient, a sum over its half of the tokens, is rounded to bf16 before
+    the two are summed, where one rank rounds the whole sum once.)"""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.ops import attention_cuda
+    from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh, share_from_rank0
+    from multimodal_embedding_tpu_torch.parallel.tp import shard_params_tp
+    from multimodal_embedding_tpu_torch.rl import grpo
+    from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
+    whole = Qwen3(cfg, gen=torch.Generator(device=dev).manual_seed(8), device=dev, dtype=torch.bfloat16)
+    whole32 = copy.deepcopy(whole).float()
+    tp_mesh, dp_mesh = get_mesh(1, TP_GRPO_RANKS), get_mesh(TP_GRPO_RANKS, 1)
+
+    def trainer(model, mesh=None):
+        return grpo.GRPOTrainer(model, support_ticket_reward, grpo.GRPOConfig(), mesh=mesh)
+
+    one, one32 = trainer(whole), trainer(whole32)
+    _random_b(one, seed=9)
+    # (trainer, the one-rank trainer it is held to)
+    sides = {"tp2": (trainer(shard_params_tp(copy.deepcopy(whole), tp_mesh), tp_mesh), one),
+             "dp2": (trainer(whole32, dp_mesh), one32), "dp2 bf16": (trainer(whole, dp_mesh), one)}
+    with torch.no_grad():
+        for tr in (one32, *(t for t, _ in sides.values())):
+            for n, ab in tr.adapters.items():
+                for p, x in ab.items():
+                    x.copy_(one.adapters[n][p])
+    prompt = generate_support_tickets(1, seed=44)[0]["prompt"]
+    p_ids, p_mask, comps = (share_from_rank0(x, dev) for x in one.rollout(prompt)[:3])
+    comp_mask = grpo.completion_token_mask(comps)
+    adv = torch.tensor([1.0, -1.0] * 4, device=dev)
+    greedy = _greedy_agreement(one, sides["tp2"][0], dev)
+    out = {"batch": list(p_ids.shape), "completion_tokens": int(comp_mask.sum())}
+    runs = {}
+    for tr in (one, one32):
+        with torch.no_grad():
+            ref = grpo._completion_logps(tr.base, p_ids, p_mask, comps)
+        batch = (p_ids, p_mask, comps, comp_mask, adv, ref)
+        (loss, (pg, kl)), grads = tr.loss_and_grads(tr.adapters, *batch)
+        runs[id(tr)] = (batch, {"loss": float(loss), "pg": float(pg), "kl": float(kl)}, grads)
+    out["one_rank"] = runs[id(one)][1]
+    for tag, (tr, alone) in sides.items():
+        batch, want, grads = runs[id(alone)]
+        attention_cuda.launches = 0
+        with _q_shapes() as shapes:
+            (loss, (pg, kl)), g = tr.loss_and_grads(tr.adapters, *batch)
+        got = {"loss": float(loss), "pg": float(pg), "kl": float(kl)}
+        cos = {f"{n}.{p}": float(torch.nn.functional.cosine_similarity(
+            g[n][p].double().flatten(), grads[n][p].double().flatten(), dim=0)) for n in g for p in ("a", "b")}
+        tr._update(g)
+        out[tag] = {**got, "rel_diff": {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in got},
+                    "grad_cosine": cos, "grad_cosine_min": min(cos.values()),
+                    "loss_pass_attention": attention_cuda.launches, "q_shapes": sorted(shapes),
+                    "adapter_crc": _adapter_crcs(tr.adapters)}
+    out["tp2"].update(greedy)
+    out["seconds"] = time.perf_counter() - t0
+    report["4-layer checks"] = out
+    del whole, whole32, one, one32, sides, runs
+    torch.cuda.empty_cache()
+
+
+def grpo_rank(out: Path) -> int:
+    """One rank of phase 11, started by torchrun: parts 1-3 (see
+    ``phase_tp_grpo``); its report goes to ``out/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from multimodal_embedding_tpu_torch.parallel.mesh import init_distributed
+
+    dev = init_distributed("cuda:0", timeout_s=300)  # gloo: both ranks share the card
+    rank = dist.get_rank()
+    report = {"rank": rank, "backend": dist.get_backend(), "device": str(dev)}
+    _rank_tp_training(dev, report)
+    _rank_cut_checks(dev, report)
+    (out / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp_grpo(kernels: list[dict]) -> None:
+    """Phase 11: Workload B on a (data, model) mesh, two ranks on the one
+    H100 through gloo (``cuda:0``), launched by torchrun; then
+    ``dryrun_multichip(2)`` on the card. The kernels were built by phase 1."""
+    import os
+    import shutil
+    import signal
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.dryrun import dryrun_multichip
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B
+
+    out = OUT_DIR / "tp_grpo"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    card = card_line()
+    gc.collect()  # the ranks need 38 GB each of the card this process shares
+    torch.cuda.empty_cache()
+    parent_reserved, free = torch.cuda.memory_reserved(), torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(TP_GRPO_RANKS),
+           str(ROOT / "chip_smoke.py"), "--grpo-rank", str(out)]
+    env = {**os.environ, "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+    proc = subprocess.Popen(cmd, cwd=out, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=TP_GRPO_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)  # torchrun and both ranks
+        log, _ = proc.communicate()
+    (out / "torchrun.log").write_text(log)
+    if proc.returncode != 0:
+        print(log[-6000:])
+    require(proc.returncode == 0, f"phase 11: torchrun exited {proc.returncode}")
+    reports = [json.loads((out / f"rank{r}.json").read_text()) for r in range(TP_GRPO_RANKS)]
+    for rep in reports:
+        print(f"[tp_grpo] rank {rep['rank']}: " + json.dumps({k: v for k, v in rep.items() if k != "rank"}))
+    L = QWEN3_14B.layers
+    total = torch.cuda.get_device_properties(0).total_memory
+    for rep in reports:
+        require(rep["backend"] == "gloo" and rep["device"] == "cuda:0", f"rank layout {rep}")
+        tr, cut = rep["tp2 qwen3-14b"], rep["4-layer checks"]
+        (part,) = tr["per_prompt"]
+        require(part["rollout_attention"] == part["ref_attention"] == part["loss_fwd_bwd_attention"] == L
+                and tr["optimizer_steps"] == 1,
+                f"rank {rep['rank']} 40-layer TP step {part}, {tr['optimizer_steps']} steps")
+        require([tuple(x) for x in tr["q_shapes"]] == TP_SHAPES,
+                f"rank {rep['rank']} attention shapes {tr['q_shapes']}")
+        require(all(math.isfinite(tr["stats"][k][0]) for k in ("loss", "kl")), f"TP GRPO stats {tr['stats']}")
+        tp, dp = cut["tp2"], cut["dp2"]
+        require(tp["grad_cosine_min"] >= TP_GRAD_COSINE_MIN and max(tp["rel_diff"].values()) <= TP_LOSS_REL_TOL
+                and tp["teacher_forced_argmax_equal"] >= TP_GREEDY_EQUAL_MIN,
+                f"rank {rep['rank']} TP 2 against one rank: cosine {tp['grad_cosine']}, loss terms {tp['rel_diff']}, "
+                f"greedy tokens equal {tp['teacher_forced_argmax_equal']} a position "
+                f"({tp['greedy_equal']} free-running)")
+        require(tp["loss_pass_attention"] == CONSISTENCY_LAYERS
+                and [tuple(x) for x in tp["q_shapes"]] == [TP_SHAPES[1]],
+                f"TP 2 loss pass launches {tp['loss_pass_attention']}, shapes {tp['q_shapes']}")
+        require(dp["grad_cosine_min"] >= DP_GRAD_COSINE_MIN and dp["rel_diff"]["loss"] <= DP_LOSS_REL_TOL,
+                f"rank {rep['rank']} DP 2 against one rank: cosine {dp['grad_cosine']}, loss {dp['rel_diff']}")
+    for key in (("tp2 qwen3-14b",), ("4-layer checks", "tp2"), ("4-layer checks", "dp2"),
+                ("4-layer checks", "dp2 bf16")):
+        crcs = []
+        for rep in reports:
+            node = rep
+            for k in key:
+                node = node[k]
+            crcs.append(node["adapter_crc"])
+        require(all(c == crcs[0] for c in crcs), f"{key}: adapters differ across ranks after the step: {crcs}")
+    peaks = [rep["tp2 qwen3-14b"]["peak_bytes"] for rep in reports]
+    require(sum(peaks) < total, f"peak device memory a rank {peaks}, of {total}")
+    torchrun_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(TP_GRPO_RANKS)
+    dry_s = time.perf_counter() - t1
+    require(dry["device"] == "cuda:0" and all(math.isfinite(dry[k]) for k in ("loss", "qwen3_loss")), f"dryrun {dry}")
+    step = {k: reports[0]["tp2 qwen3-14b"][k] for k in ("build_s", "train_s", "per_prompt")}
+    print(f"[tp_grpo] two processes time-slicing one card, collectives through host memory (gloo): not a scaling "
+          f"figure; the 40-layer TP 2 step {json.dumps(step)}, "
+          f"peak a rank {peaks} of {total} ({free} free as the ranks started, this process holding "
+          f"{parent_reserved}); torchrun {torchrun_s:.1f} s; "
+          f"dryrun_multichip(2) {dry_s:.1f} s, "
+          f"launches {json.dumps(dry['launches'])}; card {card}")
+    for k in kernels:
+        name = k["name"]
+        attention = name == "fused_attention"
+        k["launches_by_path"]["qwen3-14b grpo tp2"] = (
+            reports[0]["tp2 qwen3-14b"]["attention_launches"] if attention else 0)
+        k["launches_by_path"]["qwen3-14b 4-layer tp2, dp2 (f32, bf16) loss passes"] = (
+            sum(reports[0]["4-layer checks"][t]["loss_pass_attention"] for t in ("tp2", "dp2", "dp2 bf16"))
+            if attention else 0)
+        k["launches_by_path"]["dryrun_multichip(2)"] = dry["launches"].get(name, 0)
+    print(f"[phase11] {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2481,6 +2847,8 @@ def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--parallel-rank"]:  # one of phase 10's ranks, started by torchrun
         return parallel_rank(Path(args[1]))
+    if args[:1] == ["--grpo-rank"]:  # one of phase 11's ranks, started by torchrun
+        return grpo_rank(Path(args[1]))
     if args == ["--attention-cases"]:
         args = ["--cases", "attention"]
     if args:
@@ -2501,6 +2869,7 @@ def main() -> int:
     phase_workload_b(kernels)
     phase_workload_b_training(kernels)
     phase_parallel(kernels)
+    phase_tp_grpo(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

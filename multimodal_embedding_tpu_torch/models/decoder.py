@@ -25,31 +25,51 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..parallel.mesh import all_reduce_sum
+from ..parallel.mesh import copy_to_model, reduce_from_model
 from ..parallel.sp import shard_tokens
 from .decoder_attn import decode_attention, grouped_attention
 from .layers import matmul_f32
+
+
+def _row_product(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """``x @ w``; where ``w`` is row-split over the model axis (``group``
+    set), each rank's partial product accumulated in f32, summed over the
+    axis in f32 and rounded once to x's dtype, as one rank's product is. (A
+    sum of partials rounded to bf16 rounds twice more: on the H100 it moved
+    the GRPO loss of Qwen3-14B cut to 4 layers 2.6% from one rank's, the f32
+    sum 0.4%.)"""
+    if group is None:
+        return x @ w
+    return reduce_from_model(matmul_f32(x, w), group).to(x.dtype)
 
 
 class DecoderLayer(nn.Module):
     """One pre-norm layer: ``ln1``, ``attn.{q,k,v,o,...}``, ``ln2``,
     ``mlp.{...}``. A subclass gives ``norm`` (its RMSNorm, ``(w, x, eps)``),
     ``qkv`` (projections, any head norm and rope: q [B, T, H, Dh], k and v
-    [B, T, KVH, Dh], H and KVH read off the weights) and ``mlp_out``.
+    [B, T, KVH, Dh], H and KVH read off the weights) and ``mlp_hidden`` (the
+    activated MLP hidden in x's dtype, which ``mlp.down`` projects).
 
     Under tensor parallelism ``parallel/tp.py`` keeps this rank's heads and
     MLP columns and sets ``attn_group`` / ``mlp_group``, the model-axis group
-    that sums the row-split ``o`` / ``down`` products."""
+    of each split side: its normed input enters the column-split projections
+    through ``copy_to_model`` (the input's gradient summed over the group),
+    and its row-split ``o`` / ``down`` product leaves through
+    ``reduce_from_model`` (summed in f32, :func:`_row_product`). A side kept
+    whole has no group and takes neither. ``attn_split`` records the slice of
+    the attention this rank kept (``parallel/tp.py:AttentionSplit``; None
+    while it is whole)."""
 
     cfg: Any
     norm: Any
     attn_group = None
     mlp_group = None
+    attn_split = None
 
     def qkv(self, x: torch.Tensor, positions: torch.Tensor):
         raise NotImplementedError
 
-    def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp_hidden(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def forward(self, h, positions, key_mask, causal: bool, sp=None):
@@ -57,11 +77,12 @@ class DecoderLayer(nn.Module):
         values, which the prefill caches. With ``sp`` (a sequence-parallel
         mesh) h, positions and key_mask are this rank's token shard."""
         eps = self.cfg.rms_eps
-        q, k, v = self.qkv(self.norm(self.ln1, h, eps), positions)
+        q, k, v = self.qkv(copy_to_model(self.norm(self.ln1, h, eps), self.attn_group), positions)
         out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal,
                                 sm_scale=1.0 / math.sqrt(self.cfg.head_dim), sp=sp)
-        h = h + all_reduce_sum(out @ self.attn["o"], self.attn_group)
-        return h + all_reduce_sum(self.mlp_out(self.norm(self.ln2, h, eps)), self.mlp_group), k, v
+        h = h + _row_product(out, self.attn["o"], self.attn_group)
+        x = copy_to_model(self.norm(self.ln2, h, eps), self.mlp_group)
+        return h + _row_product(self.mlp_hidden(x), self.mlp["down"], self.mlp_group), k, v
 
     def decode(self, h, positions, k_cache, v_cache, write_idx: int, cache_valid) -> torch.Tensor:
         """One token a row, h [B, 1, D]: writes its k and v at cache slot
@@ -71,8 +92,8 @@ class DecoderLayer(nn.Module):
         q, k, v = self.qkv(self.norm(self.ln1, h, eps), positions)
         k_cache[:, :, write_idx] = k[:, 0]
         v_cache[:, :, write_idx] = v[:, 0]
-        h = h + decode_attention(q, k_cache, v_cache, cache_valid) @ self.attn["o"]
-        return h + self.mlp_out(self.norm(self.ln2, h, eps))
+        h = h + _row_product(decode_attention(q, k_cache, v_cache, cache_valid), self.attn["o"], self.attn_group)
+        return h + _row_product(self.mlp_hidden(self.norm(self.ln2, h, eps)), self.mlp["down"], self.mlp_group)
 
 
 class DecoderLM(nn.Module):
@@ -122,16 +143,20 @@ class DecoderLM(nn.Module):
 
     def prefill(self, input_ids: torch.Tensor, attn_mask: torch.Tensor, cache_len: int):
         """Causal prefill of left-padded prompts ids [B, T] with mask [B, T]
-        -> (final hidden [B, T, D], KV cache with slots 0..T-1 filled)."""
+        -> (final hidden [B, T, D], KV cache with slots 0..T-1 filled). The
+        cache holds the KV heads the layers' keys carry: this rank's under
+        tensor parallelism."""
         cfg = self.cfg
         b, t = input_ids.shape
         positions = torch.cumsum(attn_mask.long(), dim=-1) - 1
         key_mask = attn_mask > 0
         x = self.embed_tokens(input_ids)
-        shape = (cfg.layers, b, cfg.kv_heads, cache_len, cfg.head_dim)
-        kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+        kv = None
         for i, layer in enumerate(self.layers):
             x, k, v = layer(x, positions, key_mask, True)
+            if kv is None:
+                shape = (cfg.layers, b, k.shape[2], cache_len, cfg.head_dim)
+                kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
             kv["k"][i, :, :, :t] = k.transpose(1, 2)
             kv["v"][i, :, :, :t] = v.transpose(1, 2)
         return self.norm(self.final_norm, x, cfg.rms_eps), kv

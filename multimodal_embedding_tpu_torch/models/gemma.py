@@ -106,10 +106,10 @@ class GemmaLayer(DecoderLayer):
         v = (x @ p["v"]).reshape(b, t, -1, cfg.head_dim)
         return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
-    def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp_hidden(self, x: torch.Tensor) -> torch.Tensor:
         p = self.mlp
         h = torch.nn.functional.gelu((x @ p["gate"]).float(), approximate="tanh") * (x @ p["up"]).float()
-        return h.to(x.dtype) @ p["down"]
+        return h.to(x.dtype)
 
 
 class Gemma(DecoderLM):

@@ -103,10 +103,10 @@ class Qwen3Layer(DecoderLayer):
         k = qwen3_rms_norm(p["k_norm"], k, cfg.rms_eps)
         return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
-    def mlp_out(self, x: torch.Tensor) -> torch.Tensor:
+    def mlp_hidden(self, x: torch.Tensor) -> torch.Tensor:
         p = self.mlp
         h = torch.nn.functional.silu(matmul_f32(x, p["gate"])) * matmul_f32(x, p["up"])
-        return h.to(x.dtype) @ p["down"]
+        return h.to(x.dtype)
 
 
 class Qwen3(DecoderLM):

@@ -18,7 +18,10 @@ XLA turns into transfers; here they are two functions, :func:`shard_rows`
 (this data rank's rows) and :func:`gather_rows` (the data axis's rows
 concatenated in rank order). Collectives are the list-form ``all_gather``,
 ``all_reduce`` and ``broadcast`` only: gloo, the backend of ranks on the CPU
-or sharing one card, implements these for CUDA tensors.
+or sharing one card, implements these for CUDA tensors. Where XLA derives
+the gradient of a sharded program, the decoders' training path under tensor
+parallelism takes Megatron's two operators, :func:`copy_to_model` and
+:func:`reduce_from_model`, autograd Functions over the model axis.
 """
 
 from __future__ import annotations
@@ -192,9 +195,63 @@ def all_gather_cat(x: torch.Tensor, group, n: int, dim: int = 0) -> torch.Tensor
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group`` in place, in x's dtype; x itself when
-    ``group`` is None."""
+    ``group`` is None. No gradient rule: for no-grad paths."""
     if group is not None:
         dist.all_reduce(x, group=group)
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's "f": the identity forward, the gradient summed over the
+    group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's "g": the sum over the group forward, the identity
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a column-split projection: unchanged, and its gradient
+    (each rank's part, from its own columns) summed over ``group`` in the
+    backward. ``x`` itself when ``group`` is None."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """A row-split projection's partial product summed over ``group``, in
+    x's dtype; the gradient passes through unchanged. ``x`` itself when
+    ``group`` is None."""
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def broadcast_from_first(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the first rank of ``group`` holds it, written into ``x`` on
+    every rank of the group (a device tensor stays on its device); ``x``
+    itself when ``group`` is None."""
+    if group is not None:
+        dist.broadcast(x, src=dist.get_global_rank(group, 0), group=group)
     return x
 
 

@@ -19,11 +19,15 @@ here runs its attention alone, so a column split must cut whole heads. Where
 the heads do not divide the axis, the attention's weights stay whole (the
 JAX package's fall-back, logged); where a decoder's KV heads are fewer than
 the ranks (Gemma's one), each rank keeps the KV head its query heads read.
+Each split decoder layer records the slice it kept (:class:`AttentionSplit`),
+which the LoRA adapters (``rl/lora.py``) and the trainer's gradient
+reduction (``rl/grpo.py``) read.
 """
 
 from __future__ import annotations
 
 import logging
+from dataclasses import dataclass
 
 import torch
 from torch import nn
@@ -76,9 +80,22 @@ def tp_specs(params, n_model: int) -> dict[str, tuple]:
     return specs
 
 
+@dataclass(frozen=True)
+class AttentionSplit:
+    """The slice of a decoder layer's attention one rank keeps: ``q`` the
+    columns of q (its query heads) and the same rows of o; ``kv`` the
+    columns of k and v (the KV heads those query heads read: all of them
+    where every rank keeps the one KV head, and shared by several ranks
+    where the KV heads are fewer than the ranks)."""
+
+    q: slice
+    kv: slice
+
+
 def _keep(holder, key: str, t: torch.Tensor) -> None:
-    """Replace parameter ``key`` of a module or ParameterDict with ``t``."""
-    p = nn.Parameter(t.contiguous(), requires_grad=False)
+    """Replace parameter ``key`` of a module or ParameterDict with a copy of
+    ``t`` (a slice: a view would keep the whole weight's storage alive)."""
+    p = nn.Parameter(t.clone(memory_format=torch.contiguous_format), requires_grad=False)
     if isinstance(holder, nn.ParameterDict):
         holder[key] = p
     else:
@@ -138,7 +155,8 @@ def _shard_mlp(m, mesh: Mesh, up: tuple[str, ...], down: str) -> bool:
 def _shard_decoder_layer(layer, mesh: Mesh) -> bool:
     """A ``models/decoder.py:DecoderLayer`` (Gemma, Qwen3): this rank's query
     heads of q and o, the KV heads they read of k and v, and its MLP
-    columns. Returns False where the attention stays whole."""
+    columns, recorded in ``layer.attn_split``. Returns False where the
+    attention stays whole (``attn_split`` None)."""
     n, r = mesh.n_model, mesh.model_rank
     cfg, p = layer.cfg, layer.attn
     heads, kvh, dh = cfg.heads, cfg.kv_heads, cfg.head_dim
@@ -156,6 +174,7 @@ def _shard_decoder_layer(layer, mesh: Mesh) -> bool:
         _keep(p, "v", _cols(p["v"], k0, k1))
         _keep(p, "o", _rows(p["o"], q0, q1))
         layer.attn_group = mesh.model_group
+        layer.attn_split = AttentionSplit(q=slice(q0, q1), kv=slice(k0, k1))
     if _shard_mlp(layer.mlp, mesh, ("gate", "up"), "down"):
         layer.mlp_group = mesh.model_group
     return attn_split
@@ -164,17 +183,22 @@ def _shard_decoder_layer(layer, mesh: Mesh) -> bool:
 def shard_params_tp(module: nn.Module, mesh: Mesh) -> nn.Module:
     """Keep this rank's slice of every split weight of ``module``, in place,
     and mark the modules that sum a row-split product over the model axis.
-    Returns ``module`` (a no-op on a model axis of 1, or on a module split
-    already). Every attention whose heads do not divide the axis is logged;
-    modules of no known kind (Jina's blocks) stay whole."""
+    Returns ``module``, with ``tp_mesh`` set to ``mesh`` on it and on each
+    module it split (a no-op on a model axis of 1, and for a module split
+    already, as a whole or one layer at a time). Every attention whose heads
+    do not divide the axis is logged; modules of no known kind (Jina's
+    blocks) stay whole."""
     from ..models.decoder import DecoderLayer
     from ..models.layers import MLP, MultiHeadAttention
 
-    if mesh.n_model == 1 or getattr(module, "tp_sharded", False):
+    if mesh.n_model == 1 or getattr(module, "tp_mesh", None) is not None:
         return module
-    module.tp_sharded = True
     whole = []
     for name, m in module.named_modules():
+        if getattr(m, "tp_mesh", None) is not None:
+            continue
+        if isinstance(m, (MultiHeadAttention, MLP, DecoderLayer)):
+            m.tp_mesh = mesh
         if isinstance(m, MultiHeadAttention):
             if not _shard_attention(m, mesh):
                 whole.append(f"{name} ({m.n_heads} heads)")
@@ -186,4 +210,5 @@ def shard_params_tp(module: nn.Module, mesh: Mesh) -> nn.Module:
     if whole:
         logger.warning(f"tensor parallel {mesh.n_model}: attention kept whole where the heads do not divide the "
                        f"model axis (every rank runs those layers whole): {', '.join(whole)}")
+    module.tp_mesh = mesh
     return module

@@ -14,6 +14,11 @@ from ``generator`` (``torch.multinomial`` over the softmax of
 ``logits / max(temperature, 1e-6)``), where JAX draws from its key, so
 sampled tokens differ between the packages. ``logps`` are the log-softmax of
 the unscaled logits at the chosen token, at any temperature.
+
+On a tensor-parallel model (``parallel/tp.py:shard_params_tp``) every rank of
+the model axis runs its heads of each step and holds the same logits; the
+first rank's tokens are broadcast to the others, so every rank feeds and
+returns the same tokens, however its generator was seeded.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..models.decoder import DecoderLM
+from ..parallel.mesh import broadcast_from_first
 
 
 @torch.no_grad()
@@ -37,6 +43,8 @@ def generate(
     """Returns (tokens [B, max_new] int32, logps [B, max_new] f32) on the
     model's device."""
     b, tp = prompt_ids.shape
+    mesh = getattr(model, "tp_mesh", None)
+    group = None if mesh is None else mesh.model_group
     hidden, kv = model.prefill(prompt_ids, prompt_mask, tp + max_new)
     prompt_len = prompt_mask.sum(dim=-1)
     prompt_valid = prompt_mask > 0
@@ -51,6 +59,7 @@ def generate(
         else:
             probs = torch.softmax(logits / max(temperature, 1e-6), dim=-1)
             tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        tok = broadcast_from_first(tok, group)
         logps.append(torch.log_softmax(logits, dim=-1).gather(-1, tok[:, None])[:, 0])
         toks.append(tok)
         cache_valid = torch.cat([prompt_valid, (gen_slots <= i).expand(b, max_new)], dim=1)

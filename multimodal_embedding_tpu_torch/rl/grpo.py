@@ -22,6 +22,20 @@ architecture. On the card every forward's attention is the fused kernel
 version, as the JAX kernel's ``custom_vjp`` does. ``save_state`` and
 ``load_state`` read and write the JAX trainer's file, so a run resumes
 across the packages.
+
+With ``mesh`` (a ``(data, model)`` mesh of ``parallel/mesh.py:get_mesh``)
+the trainer runs as the JAX trainer on ``shard_params_tp(base, mesh)`` with
+its batch sharded over ``data``: the base is split over the model axis
+(``parallel/tp.py``); every rank draws the same adapters and the rollout
+runs on each model group, world rank 0's completions broadcast to all; the
+reference pass and the loss take this data rank's rows; the loss divides by
+``Σ comp_mask`` over the data axis, and ``loss``, ``pg`` and ``kl`` are
+summed over it, so each is the global value JAX reports. Each adapter's
+gradient is summed over the model axis where its layer's attention is split
+(each rank's part: its slice of ``b`` or ``a``, or its query heads' share of
+a KV head it keeps with others), counted once where the attention stayed
+whole, then summed over the data axis; AdamW then takes the same step on
+every rank, and the adapters stay bit-equal across ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +54,8 @@ from .generate import generate
 from .lora import LoraConfig, apply_lora, lora_init, lora_merge
 from ..models.decoder import DecoderLM
 from ..models.towers import seeded_generator
+from ..parallel.mesh import Mesh, all_reduce_sum, gather_rows, is_writer, share_from_rank0, shard_rows
+from ..parallel.tp import shard_params_tp
 
 logger = logging.getLogger("mme_tpu")
 
@@ -113,8 +129,10 @@ class GRPOTrainer:
         cfg: GRPOConfig | None = None,
         tokenizer=None,
         system_prompt: str | None = None,
+        mesh: Mesh | None = None,
     ):
-        self.base = base
+        self.mesh = mesh
+        self.base = base if mesh is None else shard_params_tp(base, mesh)
         self.reward_fn = reward_fn
         self.cfg = cfg or GRPOConfig()
         self.tokenizer = tokenizer or tok.ByteTokenizer()
@@ -127,23 +145,51 @@ class GRPOTrainer:
     def loss_and_grads(self, adapters, prompt_ids, prompt_mask, completions, comp_mask, advantages, ref_logps):
         """The JAX trainer's ``_grad_fn``: ``((loss, (pg, kl)), grads)``, the
         gradient with respect to ``adapters`` (a tree of tensors on the base's
-        device) only, as a tree of the same shape."""
+        device) only, as a tree of the same shape. The batch is the whole
+        group on every rank; on a mesh each data rank takes its rows, and the
+        results are the whole group's on every rank."""
+        mesh = self.mesh
+        prompt_ids, prompt_mask, completions, comp_mask, advantages, ref_logps = (
+            shard_rows(x, mesh) for x in (prompt_ids, prompt_mask, completions, comp_mask, advantages, ref_logps))
         leaves = {n: {p: x.detach().requires_grad_() for p, x in ab.items()} for n, ab in adapters.items()}
         order = _leaf_order(leaves)
         with torch.enable_grad():
             weights = apply_lora(self.base, leaves, self.cfg.lora)
             logps = _completion_logps(self.base, prompt_ids, prompt_mask, completions, weights)
-            denom = torch.clamp(comp_mask.sum(), min=1.0)
+            denom = comp_mask.sum()
+            if mesh is not None:
+                denom = all_reduce_sum(denom.detach().clone(), mesh.data_group)
+            denom = torch.clamp(denom, min=1.0)
             pg = -(advantages[:, None] * logps * comp_mask).sum() / denom
             # TRL k3 KL estimator vs the frozen base policy
             diff = ref_logps - logps
             kl = ((torch.exp(diff) - diff - 1.0) * comp_mask).sum() / denom
             loss = pg + self.cfg.kl_beta * kl
             grads = torch.autograd.grad(loss, [leaves[n][p] for n, p in order])
+        terms = (loss.detach(), pg.detach(), kl.detach())
+        if mesh is not None:
+            grads = self._reduce_grads(grads)
+            terms = tuple(all_reduce_sum(torch.stack(terms), mesh.data_group))
         tree: dict = {n: {} for n in leaves}
         for (n, p), g in zip(order, grads):
             tree[n][p] = g
-        return (loss.detach(), (pg.detach(), kl.detach())), tree
+        return (terms[0], (terms[1], terms[2])), tree
+
+    def _reduce_grads(self, grads) -> list[torch.Tensor]:
+        """Each rank's adapter gradients ([L, ...] each) -> the whole
+        batch's, the same on every rank: summed over the model axis where a
+        layer's attention is split, kept from the model axis's first rank
+        where it stayed whole (every rank holds all of it), then summed over
+        the data axis; in one collective an axis."""
+        mesh = self.mesh
+        grads = list(grads)
+        if mesh.model_group is not None and mesh.model_rank > 0:
+            whole = torch.tensor([layer.attn_split is None for layer in self.base.layers], device=grads[0].device)
+            grads = [torch.where(whole.view(-1, *[1] * (g.dim() - 1)), 0.0, g) for g in grads]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        for group in (mesh.model_group, mesh.data_group):
+            all_reduce_sum(flat, group)
+        return [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
     def _update(self, grads) -> None:
         for (n, p), param in zip(_leaf_order(self.adapters), self._params):
@@ -161,7 +207,9 @@ class GRPOTrainer:
         """Adapters and optimizer moments in the JAX trainer's layout:
         ``adapters/<target>/<a|b>``; ``opt/<i>`` in optax's leaf order
         (``opt/0`` the int32 step count, then ``mu`` and ``nu`` of each
-        adapter in :func:`_leaf_order`)."""
+        adapter in :func:`_leaf_order`). On a mesh, world rank 0 writes."""
+        if not is_writer():
+            return
         flat = {f"adapters/{n}/{p}": self.adapters[n][p].detach().cpu().numpy() for n, p in _leaf_order(self.adapters)}
         states = [self.opt.state.get(param, {}) for param in self._params]
         flat["opt/0"] = np.asarray(int(states[0]["step"]) if states[0] else 0, np.int32)
@@ -205,6 +253,8 @@ class GRPOTrainer:
             generator=self._gen,
         )
         completions = completions.cpu().numpy()
+        if self.mesh is not None:  # one group for every rank: world rank 0's
+            completions = share_from_rank0(completions, "cpu").numpy()
         texts = [tk.decode_until_eos(c) for c in completions]
         rewards = np.asarray([self.reward_fn(prompt, t) for t in texts], np.float32)
         return prompt_ids, prompt_mask, completions, texts, rewards
@@ -231,7 +281,8 @@ class GRPOTrainer:
                 p_ids, p_mask, comps = (torch.from_numpy(x).to(dev) for x in (p_ids, p_mask, comps))
                 comp_mask = completion_token_mask(comps, self.tokenizer.eos_id)
                 with torch.no_grad():
-                    ref_logps = _completion_logps(self.base, p_ids, p_mask, comps)
+                    rows = (shard_rows(x, self.mesh) for x in (p_ids, p_mask, comps))
+                    ref_logps = gather_rows(_completion_logps(self.base, *rows), self.mesh)
                 (loss, (pg, kl)), grads = self.loss_and_grads(
                     self.adapters, p_ids, p_mask, comps, comp_mask, torch.from_numpy(adv).to(dev), ref_logps,
                 )

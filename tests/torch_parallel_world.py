@@ -32,6 +32,12 @@ COLLECTIVE_TIMEOUT_S = 60
 def run_world(suite: str, world: int, work: Path, inputs: dict) -> list[dict]:
     """Save ``inputs``, run ``world`` ranks of ``suite`` in ``work`` and
     return each rank's results; raises with the failing ranks' output."""
+    return join_world(start_world(suite, world, work, inputs), work)
+
+
+def start_world(suite: str, world: int, work: Path, inputs: dict) -> list:
+    """Save ``inputs`` and start ``world`` ranks of ``suite`` in ``work``;
+    :func:`join_world` waits for them (the caller works meanwhile)."""
     import torch
 
     work.mkdir(parents=True, exist_ok=True)
@@ -46,6 +52,14 @@ def run_world(suite: str, world: int, work: Path, inputs: dict) -> list[dict]:
             [sys.executable, str(Path(__file__).resolve()), suite, str(work), str(rank), str(world)],
             cwd=work, env={**env, "PYTHONHASHSEED": str(rank + 1)}, stdout=log, stderr=subprocess.STDOUT,
         ), log))
+    return procs
+
+
+def join_world(procs: list, work: Path) -> list[dict]:
+    """Wait for the ranks :func:`start_world` started and return each rank's
+    results; raises with the failing ranks' output."""
+    import torch
+
     failed = []
     for rank, (proc, log) in enumerate(procs):
         try:
@@ -59,7 +73,7 @@ def run_world(suite: str, world: int, work: Path, inputs: dict) -> list[dict]:
             failed.append(f"rank {rank} ({rc}):\n{(work / f'rank{rank}.log').read_text()[-4000:]}")
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [torch.load(work / f"out_{rank}.pt", weights_only=False) for rank in range(world)]
+    return [torch.load(work / f"out_{rank}.pt", weights_only=False) for rank in range(len(procs))]
 
 
 # --- the ranks -----------------------------------------------------------------
@@ -266,6 +280,70 @@ def cli_suite(inp: dict) -> dict:
     return out
 
 
+def _numpy(tree):
+    return {n: {p: x.detach().numpy().copy() for p, x in ab.items()} for n, ab in tree.items()}
+
+
+def grpo_suite(inp: dict) -> dict:
+    """Workload B on (data, model) meshes of 2 x 2 and 1 x 4: for each
+    decoder case, one ``loss_and_grads`` and one AdamW step of a trainer on
+    the mesh from the JAX adapters; then, on each decoder split over the
+    model axis, the prefill's cache, greedy and sampled ``generate``, and the
+    first decode step's logits beside the same model on one rank."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh
+    from multimodal_embedding_tpu_torch.parallel.tp import shard_params_tp
+    from multimodal_embedding_tpu_torch.rl.generate import generate
+    from multimodal_embedding_tpu_torch.rl.grpo import GRPOConfig, GRPOTrainer
+    from multimodal_embedding_tpu_torch.rl.lora import LoraConfig
+    from multimodal_embedding_tpu_torch.rl.policy import get_arch
+    from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
+
+    def model(case):
+        arch = get_arch(case["arch"])
+        return arch.from_params(case["tree"], arch.config(**case["cfg"]), device="cpu")
+
+    out: dict = {}
+    rank = dist.get_rank()
+    ids, mask = (torch.from_numpy(x) for x in inp["prompts"])
+    for tag, mesh in (("2x2", get_mesh(2, 2)), ("1x4", get_mesh(1, 4))):
+        for name, case in inp["cases"].items():
+            trainer = GRPOTrainer(model(case), support_ticket_reward,
+                                  GRPOConfig(lora=LoraConfig(), learning_rate=inp["lr"]), mesh=mesh)
+            with torch.no_grad():
+                for n, ab in trainer.adapters.items():
+                    for p, x in ab.items():
+                        x.copy_(torch.from_numpy(case["adapters"][n][p]))
+            (loss, (pg, kl)), grads = trainer.loss_and_grads(trainer.adapters,
+                                                             *(torch.from_numpy(x) for x in case["batch"]))
+            trainer._update(grads)
+            layer = trainer.base.layers[0]
+            out[tag, name] = {"terms": [float(loss), float(pg), float(kl)], "grads": _numpy(grads),
+                              "after": _numpy(trainer.adapters), "q_shape": tuple(layer.attn["q"].shape),
+                              "split": layer.attn_split}
+        for name in inp["rollout"]:
+            case = inp["cases"][name]
+            whole, split = model(case), shard_params_tp(model(case), mesh)
+            new = inp["max_new"]
+            valid = torch.cat([mask > 0, torch.ones_like(mask[:, :1], dtype=torch.bool)], dim=1)
+            with torch.no_grad():
+                steps = []
+                for m in (whole, split):  # the prefill, then one decode step of token 7
+                    _, kv = m.prefill(ids, mask, ids.shape[1] + 1)
+                    steps.append(m.decode_step(kv, torch.full_like(ids[:, 0], 7), mask.sum(-1), ids.shape[1],
+                                               valid)[0])
+            own = torch.Generator().manual_seed(100 + rank)  # each rank's generator its own
+            out[tag, name, "rollout"] = {
+                "cache_heads": int(kv["k"].shape[2]),
+                "decode_diff": float((steps[1] - steps[0]).abs().max()),
+                "greedy": generate(split, ids, mask, new, greedy=True)[0].numpy(),
+                "sampled": generate(split, ids, mask, new, generator=own)[0].numpy(),
+            }
+    return out
+
+
 def main() -> None:
     import torch
     import torch.distributed as dist
@@ -275,7 +353,7 @@ def main() -> None:
     dist.init_process_group("gloo", store=dist.FileStore(str(work / "store"), world), rank=rank, world_size=world,
                             timeout=timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     inputs = torch.load(work / "inputs.pt", weights_only=False)
-    out = {"parallel": parallel_suite, "cli": cli_suite}[suite](inputs)
+    out = {"parallel": parallel_suite, "cli": cli_suite, "grpo": grpo_suite}[suite](inputs)
     torch.save(out, work / f"out_{rank}.pt")
     if dist.is_initialized():
         dist.destroy_process_group()
