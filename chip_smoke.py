@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cases maxsim,preprocess    # the build and these phase-2 cases only
+                                                      # (sets: attention, attention_qkv, maxsim,
+                                                      # prologue, layernorm, preprocess)
     python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
@@ -22,7 +24,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
      under tensor parallelism 2, ``[8,272,20x128]`` and ``[8,224,20x128]``
      over 4 KV heads, causal and left-padded (phase 11's passes); plus
      attention at a 4096-key row, and MaxSim at a fifth of COCO-5k's I2T,
-     checked on its first 64 queries),
+     checked on its first 64 queries; the f32 kernels at their paths' shapes:
+     Qwen3-14B's heads in f32 ``[64,256,40x128]`` (an f32 ``--save-base``
+     base under ``cli/verify_rl.py``), an f32 4096-key row, f32 stacked QKV
+     ``[64,577,3072]``, and MaxSim on a search-sized f32 index, 64 queries of
+     32 tokens against ``[5000,1030,128]``, checked on its first 4 queries;
+     each f32 case also prints its 3xTF32 bound, its TFLOP/s and SDPA's
+     device time),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -148,10 +156,24 @@ Phases, each of which fails the run (nonzero exit, no result line):
      bit-equal across the ranks after AdamW;
      finally ``dryrun_multichip(2)`` on the card. Two processes time-slice
      one card with collectives through host memory: not a scaling figure.
+ 12. the f32 kernels' paths at full width: ``retrieval/search.Index`` on a
+     COCO-5k-sized f32 ColPali index (seeded, token-normalized embeddings
+     made on the card, ``[5000,1030,128]``), 64 queries of 32 tokens at
+     k = 10, searched twice (the same answer; one f32 MaxSim launch each),
+     the first 4 queries' top-10 ids equal to the plain path's and their
+     scores within 1e-5 relative, the search's seconds; then Qwen3-14B cut
+     to 4 layers at full width in f32 (arch-random) through the prefill and
+     ``rl/generate.py:generate`` at batch 64, prompts left-padded to 256, 8
+     greedy tokens, on the f32 attention kernel against the plain attention
+     path (hidden states at valid positions and first-token logits per-row
+     cosine >= 0.99999, greedy tokens equal, 4 launches in each prefill and
+     none while decoding), the prefill's ms.
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
-``fused_attention``'s ViT-L case, its launches phase 7's flash run), the
+``fused_attention``'s ViT-L case, its launches phase 7's flash run;
+``fused_attention_f32`` and ``maxsim_f32`` are the f32 bodies of the two
+sources, counted apart, their launches phase 12's), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
 and numpy.
 """
@@ -180,6 +202,9 @@ OUT_DIR = ROOT / "build" / "chip_smoke"
 # H100 SXM data-sheet peaks (dense, no sparsity), at the full 700 W limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
+# f32 products as three TF32 tensor-core products (3xTF32, the f32 attention
+# and MaxSim kernels): a third of the 495 TFLOP/s dense TF32 peak
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 ATTN_TOL_BF16 = 2e-2  # bf16 kernel vs the f32 plain version on the same bf16 inputs
@@ -211,6 +236,9 @@ COSINE_MIN = 0.999
 # ColPali per-token cosine, kernels in bf16 vs plain versions in f32: 27
 # SigLIP and 18 Gemma layers of bf16 rounding at full width.
 COLPALI_COSINE_MIN = 0.99
+# a search at COCO-5k size (phases 2 and 12): 64 queries of 32 tokens against
+# 5000 ColPali images of 1030 tokens, f32 as encode_cli writes them
+SEARCH_QUERIES_N, SEARCH_DOCS = 64, 5000
 
 CLI_ARGS = [
     "--dataset", "synthetic", "--arch-models", "--models", "OpenAI-CLIP-L",
@@ -385,7 +413,11 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     if kvh != h:  # SDPA's GQA: K/V expanded outside the timed call
         k4, v4 = k4.repeat_interleave(h // kvh, 1), v4.repeat_interleave(h // kvh, 1)
     attn_mask = valid if (masked or causal) else None
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+
+    library_ms = cuda_time_ms(sdpa)
 
     es = q.element_size()
     pairs = float(valid.sum()) * h  # (batch, head, query, key) pairs the function needs
@@ -395,8 +427,21 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     case = {"case": name, "shape": [b, h, kvh, t, dh], "queries": tq, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
+    if not bf16:
+        case.update(_f32_extras(flops, nbytes, dev_ms, sdpa))
     print(f"[attention] {json.dumps(case)}")
     return case
+
+
+def _f32_extras(flops: float, nbytes: float, dev_ms, library) -> dict:
+    """An f32 case's two halves of its bound (the operations this case's
+    masks leave over the f32 peak; the bytes), its 3xTF32 bound (the
+    operations over a third of the TF32 peak, or the bytes), its TFLOP/s on
+    the device, and the library call's device time."""
+    return {"ops_ms": 1e3 * flops / PEAK_F32_FLOPS, "bytes_ms": 1e3 * nbytes / PEAK_BYTES,
+            "bound_3xtf32_ms": bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)[0],
+            "device_tflops": None if dev_ms is None else flops / (dev_ms * 1e9),
+            "library_device_ms": device_ms(library)}
 
 
 def _attention_grad_case(name, *, b, h, kvh, t, dh, rng):
@@ -538,6 +583,8 @@ def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng, check_queries
             "max_abs_err": err, "max_rel_err": rel, "checked_queries": nc, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
             "tflops": None if dev_ms is None else flops / (dev_ms * 1e9)}
+    if not bf16:
+        case["bound_3xtf32_ms"] = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)[0]
     print(f"[maxsim] {json.dumps(case)}")
     return case
 
@@ -659,7 +706,11 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
     if causal:
         valid = valid & torch.ones(t, t, dtype=torch.bool, device=dev).tril()
     attn_mask = valid if (masked or causal) else None
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask)
+
+    library_ms = cuda_time_ms(sdpa)
     pairs = float(valid.sum()) * h
     flops = 4.0 * pairs * dh
     nbytes = qkv.element_size() * dh * 4 * b * t * h + (b * t if km is not None else 0)
@@ -668,6 +719,8 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
             "bit_equal_to_fused_attention": True, "max_abs_err": err, "max_rel_err": max_rel,
             "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
+    if not bf16:
+        case.update(_f32_extras(flops, nbytes, dev_ms, sdpa))
     print(f"[attention_qkv] {json.dumps(case)}")
     return case
 
@@ -773,6 +826,14 @@ def attention_cases() -> list[tuple[str, dict]]:
             full_mask_rows=True, left_padded=True)),
         ("qwen3-small prefill", dict(b=8, h=8, kvh=4, t=256, dh=64, dtype=torch.float32, causal=True, masked=True,
                                      layout="packed", full_mask_rows=True, left_padded=True)),
+        # Qwen3-14B's heads in f32: cli/verify_rl.py on an f32 --save-base
+        # base (batch 64, prompts left-padded to 256); and an f32 key row of
+        # 4096, which the f32 kernel takes as the bf16 one does
+        ("qwen3-14b f32 prefill packed gqa causal+mask, left-padded", dict(
+            b=64, h=40, kvh=8, t=256, dh=128, dtype=torch.float32, causal=True, masked=True, layout="packed",
+            full_mask_rows=True, left_padded=True)),
+        ("f32 long key row bhtd", dict(b=1, h=2, kvh=2, t=4096, dh=64, dtype=torch.float32, causal=False,
+                                       masked=False, layout="bhtd", full_mask_rows=False)),
         # Workload B's training (phase 9): GRPO's forwards over a group of 8,
         # a support ticket bucketed to 224 tokens plus 48 completion tokens
         _grpo_attention_case(),
@@ -785,6 +846,24 @@ def attention_cases() -> list[tuple[str, dict]]:
         ("qwen3-14b rollout prefill tp2 shard packed gqa causal+mask, left-padded", dict(
             b=8, h=20, kvh=4, t=224, dh=128, dtype=torch.bfloat16, causal=True, masked=True, layout="packed",
             full_mask_rows=True, left_padded=True)),
+    ]
+
+
+def attention_qkv_cases() -> list[tuple[str, dict]]:
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("vit-l b64 stacked", dict(b=64, h=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                                   full_mask_rows=False)),
+        ("clip text b128 stacked causal+mask", dict(b=128, h=12, t=77, dh=64, dtype=bf16, causal=True, masked=True,
+                                                    full_mask_rows=False)),
+        ("siglip-448 b8 stacked", dict(b=8, h=16, t=1024, dh=72, dtype=bf16, causal=False, masked=False,
+                                       full_mask_rows=False)),
+        ("f32 stacked causal+mask, fully masked rows", dict(b=4, h=4, t=77, dh=64, dtype=f32, causal=True,
+                                                            masked=True, full_mask_rows=True)),
+        ("vit-l b64 stacked f32", dict(b=64, h=16, t=577, dh=64, dtype=f32, causal=False, masked=False,
+                                       full_mask_rows=False)),
     ]
 
 
@@ -858,6 +937,11 @@ def maxsim_cases() -> list[tuple[str, dict]]:
         # 44.2 TFLOP, 45 ms at the bound; the first 64 queries checked
         ("coco-5k fifth i2t", dict(nq=1024, tq=1030, nd=5120, td=32, dim=128, dtype=bf16, masked=False,
                                    check_queries=64)),
+        # cli/search.py at search size: 64 queries of 32 tokens against a
+        # COCO-5k-sized f32 ColPali index (2.64 GB; 2.70 TFLOP, 40 ms at the
+        # f32 bound); the first 4 queries checked
+        ("f32 search-sized", dict(nq=SEARCH_QUERIES_N, tq=32, nd=SEARCH_DOCS, td=1030, dim=128,
+                                  dtype=torch.float32, masked=False, check_queries=4)),
     ]
 
 
@@ -866,6 +950,7 @@ CASE_SETS = {
     "preprocess": (preprocess_cases, "_preprocess_case", "preprocess"),
     "maxsim": (maxsim_cases, "_maxsim_case", "maxsim"),
     "attention": (attention_cases, "_attention_case", "attention"),
+    "attention_qkv": (attention_qkv_cases, "_attention_qkv_case", "attention_qkv"),
     "prologue": (prologue_cases, "_prologue_case", "prologue"),
     "layernorm": (layernorm_cases, "_layer_norm_case", "layernorm"),
 }
@@ -908,28 +993,33 @@ def phase_kernels() -> list[dict]:
     maxsim = [_maxsim_case(name, **kw, rng=rng) for name, kw in maxsim_cases()]
     torch.cuda.empty_cache()
     prologue = [_prologue_case(name, **kw, rng=rng) for name, kw in prologue_cases()]
-    attn_qkv = [
-        _attention_qkv_case("vit-l b64 stacked", b=64, h=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
-                            full_mask_rows=False, rng=rng),
-        _attention_qkv_case("clip text b128 stacked causal+mask", b=128, h=12, t=77, dh=64, dtype=bf16,
-                            causal=True, masked=True, full_mask_rows=False, rng=rng),
-        _attention_qkv_case("siglip-448 b8 stacked", b=8, h=16, t=1024, dh=72, dtype=bf16, causal=False,
-                            masked=False, full_mask_rows=False, rng=rng),
-        _attention_qkv_case("f32 stacked causal+mask, fully masked rows", b=4, h=4, t=77, dh=64,
-                            dtype=torch.float32, causal=True, masked=True, full_mask_rows=True, rng=rng),
-    ]
+    attn_qkv = [_attention_qkv_case(name, **kw, rng=rng) for name, kw in attention_qkv_cases()]
     ln = [_layer_norm_case(name, **kw, rng=rng) for name, kw in layernorm_cases()]
     root = "multimodal_embedding_tpu_torch/csrc"
+    # the f32 bodies are kernels of their own (flash_f32_kernel, tf32x3_kernel)
+    # with their own launch counts: their cases and headlines apart
+    attn_f32 = [c for c in attn if c.get("dtype") == "float32"]
+    attn = [c for c in attn if c.get("dtype") != "float32"]
+    maxsim_f32 = [c for c in maxsim if c["dtype"] == "float32"]
+    maxsim = [c for c in maxsim if c["dtype"] != "float32"]
     return [
         {"name": "fused_attention", "route": "cuda", "source": f"{root}/attention.cu",
          "replaces": "multimodal_embedding_tpu/ops/attention_pallas.py:219", **_headline(attn[0]),
          "cases": attn},
+        {"name": "fused_attention_f32", "route": "cuda", "source": f"{root}/attention.cu",
+         "replaces": "multimodal_embedding_tpu/ops/attention_pallas.py:219",
+         "path": "f32 calls of fused_attention: Workload B's f32 decoders", **_headline(_case(attn_f32, "qwen3-14b f32")),
+         "cases": attn_f32},
         {"name": "preprocess", "route": "cuda", "source": f"{root}/preprocess.cu",
          "replaces": "multimodal_embedding_tpu/ops/preprocess_pallas.py:57", **_headline(pre[0]),
          "cases": pre},
         {"name": "maxsim", "route": "cuda", "source": f"{root}/maxsim.cu",
          "replaces": "multimodal_embedding_tpu/ops/maxsim.py:128", **_headline(maxsim[0]),
          "cases": maxsim},
+        {"name": "maxsim_f32", "route": "cuda", "source": f"{root}/maxsim.cu",
+         "replaces": "multimodal_embedding_tpu/ops/maxsim.py:128",
+         "path": "f32 calls of maxsim_cuda: every search of an f32 index", **_headline(_case(maxsim_f32, "f32 search")),
+         "cases": maxsim_f32},
         {"name": "fused_res_norm_matmul", "route": "cuda", "source": f"{root}/fused_ln_matmul.cu",
          "replaces": "multimodal_embedding_tpu/ops/fused_ln_matmul.py:167", **_headline(prologue[0]),
          "cases": prologue},
@@ -940,6 +1030,10 @@ def phase_kernels() -> list[dict]:
          "replaces": "multimodal_embedding_tpu/ops/layernorm_pallas.py:38",
          "path": "none (no path in the JAX package)", **_headline(ln[0]), "cases": ln},
     ]
+
+
+def _case(cases: list[dict], prefix: str) -> dict:
+    return next(c for c in cases if c["case"].startswith(prefix))
 
 
 def _headline(case: dict) -> dict:
@@ -962,7 +1056,8 @@ def _counters() -> dict:
 
     return {"fused_attention": (attention_cuda, "launches"), "preprocess": (preprocess_cuda, "launches"),
             "maxsim": (maxsim_cuda, "launches"), "fused_res_norm_matmul": (fused_ln_matmul_cuda, "launches"),
-            "fused_attention_qkv": (attention_cuda, "qkv_launches"), "fused_layer_norm": (layernorm_cuda, "launches")}
+            "fused_attention_qkv": (attention_cuda, "qkv_launches"), "fused_layer_norm": (layernorm_cuda, "launches"),
+            "fused_attention_f32": (attention_cuda, "f32_launches"), "maxsim_f32": (maxsim_cuda, "f32_launches")}
 
 
 def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
@@ -2833,6 +2928,162 @@ def phase_tp_grpo(kernels: list[dict]) -> None:
     print(f"[phase11] {time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 12: the f32 kernels' paths at full width ------------------------------------
+
+F32_GENERATE_BATCH, F32_GENERATE_NEW = 64, 8
+F32_COSINE_MIN = 0.99999  # the f32 attention kernel against the plain path, both sides f32
+
+
+def _count_launches(fn):
+    """(fn(), every launch count over the call): each count set to 0 just
+    before and read just after."""
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    return out, {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
+
+def _f32_index_search(dev) -> dict:
+    """``retrieval/search.Index`` at COCO-5k size in f32: seeded,
+    token-normalized synthetic embeddings made on the card (5000 docs of
+    1030 tokens, 64 queries of 32), searched at k = 10 through the f32
+    MaxSim kernel, twice (the same answer); the first 4 queries' top-10 ids
+    equal to the plain path's and their scores within max|d|/max|plain|
+    ``MAXSIM_REL_TOL_F32``."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops.maxsim_cuda import maxsim_scores_ref
+    from multimodal_embedding_tpu_torch.retrieval.search import Index
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    emb = torch.randn(SEARCH_DOCS, 1030, 128, generator=gen, device=dev)
+    emb /= emb.norm(dim=-1, keepdim=True)
+    queries = torch.randn(SEARCH_QUERIES_N, 32, 128, generator=gen, device=dev)
+    queries /= queries.norm(dim=-1, keepdim=True)
+    index = Index(embeddings=emb, ids=np.arange(SEARCH_DOCS) + 100_000, multi_vector=True)
+    seconds, results = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (ids, top), counts = _count_launches(lambda: index.search(queries, k=10))
+        seconds.append(time.perf_counter() - t0)  # search returns host arrays: synchronized
+        results.append((ids, top))
+    require(counts["maxsim_f32"] == counts["maxsim"] == 1, f"the f32 index search launched {counts}")
+    require(np.array_equal(results[0][0], results[1][0]) and np.array_equal(results[0][1], results[1][1]),
+            "two searches of the same index gave different answers")
+    nc = 4
+    plain = maxsim_scores_ref(queries[:nc], emb)
+    plain_top, plain_idx = torch.sort(plain, dim=1, descending=True, stable=True)
+    plain_ids, plain_top = index.ids[plain_idx[:, :10].cpu().numpy()], plain_top[:, :10].cpu().numpy()
+    require(np.array_equal(ids[:nc], plain_ids), f"search top-10 ids {ids[:nc].tolist()} != plain {plain_ids.tolist()}")
+    err = float(np.abs(top[:nc] - plain_top).max())
+    rel = err / float(np.abs(plain_top).max())
+    require(math.isfinite(rel) and rel <= MAXSIM_REL_TOL_F32, f"search top-10 scores: max|d|/max|plain| {rel}")
+    require(ids.shape == (SEARCH_QUERIES_N, 10) and bool(np.isfinite(top).all()), f"search result {ids.shape}")
+    out = {"index": [SEARCH_DOCS, 1030, 128], "queries": [SEARCH_QUERIES_N, 32, 128], "k": 10,
+           "search_s": seconds, "checked_queries": nc, "top10_ids_equal": True, "max_score_abs_err": err,
+           "max_score_rel_err": rel, "counts": counts}
+    del emb, queries, index, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def _qwen3_f32_generate(dev) -> dict:
+    """``QWEN3_14B`` cut to 4 layers at full width in f32 (arch-random):
+    the prefill (timed) and ``rl/generate.py:generate`` at batch 64, prompts
+    left-padded to 256, 8 greedy tokens, through the f32 attention kernel
+    and through the plain attention path on the same weights; hidden states
+    at valid positions and first-token logits per-row cosine >=
+    ``F32_COSINE_MIN``, greedy tokens equal, one launch a layer in each
+    prefill and none while decoding."""
+    import dataclasses
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
+    from multimodal_embedding_tpu_torch.rl.generate import generate
+
+    cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Qwen3(cfg, gen=torch.Generator(device=dev).manual_seed(4), device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(12)
+    b, t = F32_GENERATE_BATCH, VERIFY_PROMPT_LEN
+    lengths = rng.integers(1, t + 1, size=b)
+    lengths[0] = t
+    mask_np = (np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)
+    ids_np = np.where(mask_np > 0, rng.integers(3, cfg.vocab_size, size=(b, t)), 0)
+    ids, mask = torch.from_numpy(ids_np).to(dev), torch.from_numpy(mask_np).to(dev)
+    valid = mask.bool()
+    runs = {}
+    for impl in ("pallas", "xla"):  # the kernel route, then the plain attention path
+        layers.set_attention_impl(impl)
+        try:
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (hidden, _), prefill_counts = _count_launches(lambda: model.prefill(ids, mask, t))
+                torch.cuda.synchronize()
+                prefill_ms = 1e3 * (time.perf_counter() - t0)
+                first = model.lm_logits(hidden[:, -1:])[:, 0]
+                (toks, _), counts = _count_launches(
+                    lambda: generate(model, ids, mask, F32_GENERATE_NEW, greedy=True))
+        finally:
+            layers.set_attention_impl("auto")
+        runs[impl] = {"hidden": hidden[valid], "first": first, "toks": toks, "prefill_ms": prefill_ms,
+                      "prefill_counts": prefill_counts, "counts": counts}
+        del hidden
+    k, p = runs["pallas"], runs["xla"]
+    L = CONSISTENCY_LAYERS
+    require(k["prefill_counts"]["fused_attention_f32"] == k["counts"]["fused_attention_f32"] == L,
+            f"f32 Qwen3 launches: prefill {k['prefill_counts']}, generate {k['counts']} (want {L} each, the "
+            f"generate's all in its prefill)")
+    require(p["prefill_counts"]["fused_attention"] == p["counts"]["fused_attention"] == 0,
+            "the plain attention path launched the attention kernel")
+    cos_h, cos_l = _cosines(k["hidden"], p["hidden"]), _cosines(k["first"], p["first"])
+    equal = float((k["toks"] == p["toks"]).float().mean())
+    out = {"layers": L, "batch": b, "prompt_len": t, "new_tokens": F32_GENERATE_NEW,
+           "prefill_ms": k["prefill_ms"], "plain_prefill_ms": p["prefill_ms"],
+           "hidden_cosine_min": float(cos_h.min()), "valid_rows": int(valid.sum()),
+           "first_logits_cosine_min": float(cos_l.min()), "greedy_tokens_equal": equal,
+           "attention_launches": {"prefill": k["prefill_counts"]["fused_attention_f32"],
+                                  "generate": k["counts"]["fused_attention_f32"]},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), "counts": k["counts"]}
+    require(bool(torch.isfinite(k["hidden"]).all()) and bool(torch.isfinite(k["first"]).all()),
+            "non-finite f32 Qwen3 outputs")
+    require(out["hidden_cosine_min"] >= F32_COSINE_MIN and out["first_logits_cosine_min"] >= F32_COSINE_MIN,
+            f"f32 Qwen3-14B 4-layer kernel vs plain cosine {out} < {F32_COSINE_MIN}")
+    require(equal == 1.0, f"f32 Qwen3-14B greedy tokens equal to the plain path's in {equal} of positions")
+    del model, runs, k, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_f32_paths(kernels: list[dict]) -> None:
+    """Phase 12: the paths that run the f32 kernels, at full width."""
+    import torch
+
+    dev = torch.device("cuda")
+    card = card_line()
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    search = _f32_index_search(dev)
+    print(f"[phase12] f32 index search: {json.dumps(search)}; card {card}")
+    qwen = _qwen3_f32_generate(dev)
+    print(f"[phase12] Qwen3-14B {CONSISTENCY_LAYERS} layers f32, generate batch {F32_GENERATE_BATCH}, prompts "
+          f"{VERIFY_PROMPT_LEN}, {F32_GENERATE_NEW} greedy tokens, f32 kernel vs plain: {json.dumps(qwen)}")
+    for k in kernels:
+        k["launches_by_path"]["f32 index search"] = search["counts"].get(k["name"], 0)
+        k["launches_by_path"]["qwen3-14b 4-layer f32 generate"] = qwen["counts"].get(k["name"], 0)
+        if k["name"] == "maxsim_f32":
+            k["launches"] = search["counts"]["maxsim_f32"]
+        elif k["name"] == "fused_attention_f32":
+            k["launches"] = qwen["counts"]["fused_attention_f32"]
+    print(f"[phase12] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2870,6 +3121,7 @@ def main() -> int:
     phase_workload_b_training(kernels)
     phase_parallel(kernels)
     phase_tp_grpo(kernels)
+    phase_f32_paths(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -50,15 +50,44 @@
 // five blocks per SM; no spill at Dh 64, 8 bytes at Dh 80 masked, 40-48 at
 // Dh 128), 233-234 at Dh 256 with no spill.
 //
-// f32: attn_f32_kernel, the two-pass design of plain FMA (no TF32 rounding):
-// one block of 8 warps per (query tile, head, batch) writes the tile's f32
-// logits for the whole key row into dynamic shared memory, with key rows
-// streamed kKC at a time through a cp.async ring; each warp takes the exact
-// softmax of its rows (max, then exp and sum) and writes p over the same row;
-// pass 2 streams V the same way and accumulates PV in registers. The tile
-// height (64, 32 or 16 rows) is the largest whose rows*Tk*4 logits fit, so
-// past about Tk 3300 the launch returns cudaErrorInvalidValue. Only tests and
-// chip_smoke.py's f32 cases reach it.
+// f32: flash_f32_kernel, the same data flow with f32 operands and 3xTF32
+// tensor-core products. A block of 4 warps covers 64 query rows of one
+// (head, batch), 16 rows a warp end to end; Q's tile is loaded once; K and V
+// stream through a cp.async ring (3 stages at Dh 64, 2 above) in tiles of
+// Bc = 32 keys; the same two sweeps (the exact row max and any-valid flag,
+// then p against that max, its f32 sum and PV), the same causal tile skip,
+// the logits, p and the output accumulator in registers. Every product runs
+// as mma.sync.m16n8k8.f32.tf32.tf32.f32 three times: each f32 operand is
+// split in registers, after its fragment is read from shared memory, into
+// a TF32 high part (rounded to nearest, ties away) and a TF32 low part (the
+// exact remainder, truncated), and a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi
+// accumulates in f32 (a_lo.b_lo, about 2^-22 of a.b, is dropped). Its error
+// against f32 is about 2^-21 a product, against 2^-11 for one TF32 pass,
+// which fails the 1e-5 gate (tests/torch_tf32.py emulates both). The tensor
+// core's accumulator rounds toward zero: a chain of n accumulations drifts
+// low by up to n ulps (on the card, PV over 4096 keys in one chain was
+// 2.9e-5 low on average), so hi.hi and the cross terms accumulate in two
+// chains of one key tile (PV) or 64 dims (QK^T) that are then added into
+// f32 registers, rounded to nearest. p stays f32 into PV. Reduced dims are permuted inside each chunk of 8 so that
+// every fragment is read without shuffles: k-index t of a chunk is element
+// 2t, k-index t + 4 is element 2t + 1. So Q's and K's fragments are float2
+// reads (rows kDp + 8 floats apart: a half-warp's reads hit 32 banks), and
+// the C fragment of an n8 logit tile (keys 2t, 2t + 1 of rows g, g + 8) is
+// the A fragment of its 8 keys in PV; V's fragment is two float reads
+// (rows kDp + 4 floats apart). Key tiles wholly outside the batch row's
+// first and last valid keys are skipped (their p are exact zeros): a
+// left-padded prefill sweeps no pad tile. The head dim is padded to 64,
+// 128 or 256 with zero columns. Shared memory does not grow with Tk (71 KB at Dh 64, 101 KB
+// at Dh 128, 197 KB at Dh 256), so any key row length is taken.
+// Consumers: Workload B's f32 models (cli/train_rl.py and cli/verify_rl.py
+// at the default --model-size small, a --save-base base read back by
+// --base-params, dryrun_multichip), and any f32 call of the attention
+// routes.
+// Bound on an H100 SXM at Qwen3-14B's heads in f32 (B 64, T 256, 40 over 8
+// heads, Dh 128, causal): 43.1 GFLOP of causal work, 0.644 ms at the 67
+// TFLOP/s f32 peak outside the tensor cores (0.261 ms at 165, a third of the
+// 495 TFLOP/s TF32 peak: the three passes); q, k, v and o move 0.81 GB,
+// 0.240 ms at 3.35 TB/s.
 //
 // Bound on an H100 SXM at ViT-L batch 64, one layer (B 64, H 16, T 577,
 // Dh 64): 4*64*16*577^2*64 = 87 GFLOP, 88 us at the 989 TFLOP/s bf16 dense
@@ -71,18 +100,9 @@
 
 namespace {
 
-constexpr int kStages = 2;  // buffers in a shared-memory ring (kStages - 1 in flight)
+constexpr int kStages = 2;  // buffers in the bf16 kernel's shared-memory ring (kStages - 1 in flight)
 constexpr float kNegInf = -1e30f;
 
-// f32 two-pass kernel
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKC = 64;       // key rows staged per chunk
-constexpr int kMaxOut = 64;   // PV outputs per thread
-constexpr size_t kSmemLimit = 232448;  // 227 KB, the per-block maximum
-constexpr size_t kSmemTwoPerSM = 113 * 1024;
-
-// bf16 flash kernel
 constexpr int kFlashWarps = 4;
 constexpr int kFlashThreads = kFlashWarps * 32;
 constexpr int kBr = kFlashWarps * 16;  // query rows per block, 16 per warp
@@ -97,21 +117,7 @@ struct Params {
   long long sqb, sqt, sqh, skb, skt, skh, svb, svt, svh, sob, sot, soh, skmb;
   int causal;
   float scale;
-  // f32 kernel only
-  int bq;   // query rows per block (multiple of 16)
-  int dp;   // head dim padded to a multiple of 16
-  int ldq;  // shared-memory row stride of the q/k/v tiles: dp + 8 elements
-  int lds;  // row stride of the f32 logits buffer: >= Tk and >= dp + 4, = 4 mod 32
 };
-
-// Row strides are padded so that consecutive rows start 16 bytes apart in
-// the 128-byte bank cycle: the 16-byte row segments an ldmatrix reads
-// then fall on distinct banks.
-__host__ __device__ inline int pad_ldq(int dp) { return dp + 8; }
-__host__ __device__ inline int pad_lds(int tkp, int dp) {
-  const int c = tkp > dp + 4 ? tkp : dp + 4;
-  return c + ((4 - c % 32) + 32) % 32;
-}
 
 // Dynamic shared memory. Every shared-memory pointer is derived from this
 // array in the scope that dereferences it, so the compiler emits shared loads
@@ -128,6 +134,11 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // Wait until at most kStages - 2 copy groups are still in flight.
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
+// Wait until at most N copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Tensor-core tiles through explicit shared-memory addresses: ldmatrix loads
@@ -386,202 +397,292 @@ int launch_bf16(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: the two-pass kernel
+// f32: the flash-style kernel on 3xTF32 tensor-core products
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// TF32 parts of an f32 for 3xTF32: hi is x rounded to nearest (ties away
+// from zero) at 10 mantissa bits, lo the exact remainder x - hi truncated
+// to 10 bits. Both are bit patterns the mma reads as .tf32.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// d += a.b for a 16x8 tf32 A fragment and an 8x8 B fragment (fragment
+// layouts: PTX ISA, "mma.m16n8k8").
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// Stream rows [0, tkp) of a K or V operand through a ring of kStages
-// shared-memory buffers (buffer j at byte offset buf_off + j * buf_bytes),
-// kKC rows at a time: chunks i+1 .. i+kStages-1 are in flight while every
-// warp computes on chunk i. compute(off, c0, kc) sees rows c0 .. c0+kc-1 at
-// byte offset off of smem.
-template <typename F>
-__device__ __forceinline__ void stream_chunks(int buf_off, int buf_bytes, const float* src, long long stride,
-                                              const Params& p, int tkp, F&& compute) {
-  const int n = (tkp + kKC - 1) / kKC;
-  auto issue = [&](int i) {
-    if (i < n) {
-      const int c0 = i * kKC, kc = min(kKC, tkp - c0);
-      load_rows_async<kThreads>(reinterpret_cast<float*>(smem + buf_off + (i % kStages) * buf_bytes),
-                                src + (long long)c0 * stride, stride, kc, min(kc, p.Tk - c0), p.Dh, p.dp, p.ldq);
-    }
-    cp_async_commit();  // one group per chunk, empty past the end
-  };
-  for (int i = 0; i < kStages - 1; ++i) issue(i);
-  for (int i = 0; i < n; ++i) {
-    cp_async_wait_ring();  // chunk i has landed (for this thread)
-    __syncthreads();       // ... for every thread; and chunk i-1's buffer is free
-    issue(i + kStages - 1);
-    compute(buf_off + (i % kStages) * buf_bytes, i * kKC, min(kKC, tkp - i * kKC));
+// a.b in 3xTF32: hi.hi into big, the two cross terms into small (two
+// independent accumulator chains).
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
+}
+// d += big + small in f32 registers, rounded to nearest: the tensor core's
+// accumulator rounds toward zero, a bias that grows with the chain, so each
+// chain spans one key tile or 64 dims and then lands here.
+__device__ __forceinline__ void promote(float (&d)[4], float (&big)[4], float (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    d[e] += big[e] + small[e];
+    big[e] = small[e] = 0.0f;
   }
-  __syncthreads();  // the ring is free for the next stream
 }
 
-// kMasked: a key mask or causal masking is in play (else every key is valid
-// and the softmax skips the validity tests).
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads) attn_f32_kernel(Params p) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+template <int kDp>
+struct F32Shape {
+  static constexpr int kBc = 32;                  // keys per tile
+  static constexpr int kStages = kDp <= 64 ? 3 : 2;
+  static constexpr int kMinBlocks = kDp <= 64 ? 3 : kDp <= 128 ? 2 : 1;  // blocks per SM the smem allows
+  static constexpr int kLdK = kDp + 8;            // Q and K row stride, floats: 8 mod 32
+  static constexpr int kLdV = kDp + 4;            // V row stride: 4 mod 32
+  static constexpr int kQBytes = kBr * kLdK * 4;
+  static constexpr int kKBytes = kBc * kLdK * 4;
+  static constexpr int kStageBytes = kKBytes + kBc * kLdV * 4;  // a K tile, then a V tile
+  static constexpr int kSmem = kQBytes + kStages * kStageBytes;
+};
+
+template <int kDp, bool kMasked>
+__global__ void __launch_bounds__(kFlashThreads, F32Shape<kDp>::kMinBlocks) flash_f32_kernel(Params p) {
+  using Shape = F32Shape<kDp>;
+  constexpr int kBc = Shape::kBc;
+  constexpr int kS = Shape::kStages;
+  constexpr int kLdK = Shape::kLdK;
+  constexpr int kLdV = Shape::kLdV;
+  constexpr int kNt = kBc / 8;  // n8 tiles of a warp's 16 x kBc logit tile
+  constexpr int kOt = kDp / 8;  // n8 tiles of its 16 x kDp output
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row (and row + 8), column pair
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = blockIdx.x * p.bq;
-  const int rows_valid = min(p.bq, p.Tq - q0);
-  const int tkp = (p.Tk + 15) / 16 * 16;
-
-  // layout: S [bq][lds] f32 | Q [bq][ldq] | K/V [kStages][kKC][ldq] | rscale [bq] f32
-  const int q_off = p.bq * p.lds * 4;
-  const int kv_off = q_off + p.bq * p.ldq * 4;
-  const int kv_bytes = kKC * p.ldq * 4;
-  float* S = reinterpret_cast<float*>(smem);
-  float* Qs = reinterpret_cast<float*>(smem + q_off);
-  float* rscale = reinterpret_cast<float*>(smem + kv_off + kStages * kv_bytes);
+  const int q0 = blockIdx.x * kBr;
+  const int rows_valid = min(kBr, p.Tq - q0);
+  // causal: keys past the block's last query row are invalid for every row
+  const int kend = kMasked && p.causal ? min(p.Tk, q0 + rows_valid) : p.Tk;
 
   const float* qg = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh + (long long)q0 * p.sqt;
   const float* kg = static_cast<const float*>(p.k) + b * p.skb + kvh * p.skh;
   const float* vg = static_cast<const float*>(p.v) + b * p.svb + kvh * p.svh;
+  const int* kmr = kMasked && p.km ? p.km + b * p.skmb : nullptr;
+  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  load_rows_async<kThreads>(Qs, qg, p.sqt, p.bq, rows_valid, p.Dh, p.dp, p.ldq);  // lands with chunk 0
-
-  // ---- pass 1: logits S = Q K^T for the whole key row ----
-  stream_chunks(kv_off, kv_bytes, kg, p.skt, p, tkp, [=](int off, int c0, int kc) {
-    float* S = reinterpret_cast<float*>(smem);
-    const float* Ks = reinterpret_cast<const float*>(smem + off);
-    const float* Qs = reinterpret_cast<const float*>(smem + q_off);
-    for (int i = tid; i < p.bq * kc; i += kThreads) {
-      const int j = i / p.bq, r = i - (i / p.bq) * p.bq;
-      const float* qr = Qs + r * p.ldq;
-      const float* kr = Ks + j * p.ldq;
-      float s = 0.0f;
-      for (int d = 0; d < p.Dh; ++d) s = fmaf(qr[d], kr[d], s);
-      S[r * p.lds + c0 + j] = s;
-    }
-  });
-
-  // ---- exact softmax, one warp per row; p overwrites its own row ----
-  // Each lane takes 4 consecutive logits per step (float4 reads).
-  const int* kmr = p.km ? p.km + b * p.skmb : nullptr;
-  for (int r = warp; r < p.bq; r += kWarps) {
-    float* srow = S + r * p.lds;
-    const int qrow = q0 + r;
-    auto is_valid = [&](int j) {
-      return j < p.Tk && (!kMasked || ((kmr == nullptr || kmr[j] != 0) && (!p.causal || j <= qrow)));
-    };
-    float m = kNegInf;
-    int anyv = 0;
-    for (int j = 4 * lane; j < p.Tk; j += 128) {
-      const float4 l4 = *reinterpret_cast<const float4*>(srow + j);
-      const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+  // Key tiles [t0, t0 + n) hold every valid key below kend. A tile wholly
+  // before the batch row's first valid key or after its last (a left-padded
+  // prompt's pad tiles, a right-padded one's tail) gives its rows p = 0
+  // exactly, so both sweeps skip it; a row with no valid key is zeros.
+  int t0 = 0, n = (kend + kBc - 1) / kBc;
+  if (kMasked && kmr != nullptr) {
+    __shared__ int span[2 * kFlashWarps];
+    int lo = kend, hi = -1;
+    for (int c = threadIdx.x; c < kend; c += kFlashThreads)
+      if (kmr[c] != 0) lo = min(lo, c), hi = max(hi, c);
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) span[warp] = lo, span[kFlashWarps + warp] = hi;
+    __syncthreads();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool valid = is_valid(j + e);
-        m = fmaxf(m, valid ? lv[e] : kNegInf);
-        anyv |= valid ? 1 : 0;
-      }
+    for (int w = 0; w < kFlashWarps; ++w) lo = min(lo, span[w]), hi = max(hi, span[kFlashWarps + w]);
+    t0 = hi < 0 ? 0 : lo / kBc;
+    n = hi < 0 ? 0 : hi / kBc + 1 - t0;
+  }
+
+  // layout: Q [kBr][kLdK] | stage j: K [kBc][kLdK], V [kBc][kLdV]
+  auto stage_off = [](int s) { return Shape::kQBytes + (s % kS) * Shape::kStageBytes; };
+
+  load_rows_async<kFlashThreads>(reinterpret_cast<float*>(smem), qg, p.sqt, kBr, rows_valid, p.Dh, kDp,
+                                 kLdK);  // lands with step 0
+  // Steps 0 .. n-1 are sweep 1 (K tile s), n .. 2n-1 sweep 2 (K and V tile
+  // s - n); the ring runs on across the boundary.
+  auto issue = [&](int s) {
+    if (s < 2 * n) {
+      const int c0 = (t0 + (s < n ? s : s - n)) * kBc;
+      const int rv = min(kBc, p.Tk - c0);
+      float* kd = reinterpret_cast<float*>(smem + stage_off(s));
+      load_rows_async<kFlashThreads>(kd, kg + (long long)c0 * p.skt, p.skt, kBc, rv, p.Dh, kDp, kLdK);
+      if (s >= n)
+        load_rows_async<kFlashThreads>(kd + kBc * kLdK, vg + (long long)c0 * p.svt, p.svt, kBc, rv, p.Dh, kDp,
+                                       kLdV);
     }
-    m = warp_max(m);
-    anyv = __any_sync(0xffffffffu, anyv);
-    float sum = 0.0f;
-    for (int j0 = 0; j0 < tkp; j0 += 128) {
-      const int j = j0 + 4 * lane;
-      float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (j < p.Tk) {
-        const float4 l4 = *reinterpret_cast<const float4*>(srow + j);
-        const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+    cp_async_commit();  // one group per step, empty past the end
+  };
+  // Step s's tile has landed for every thread, and every warp is done with
+  // step s-1's stage, which step s+kS-1's copies then overwrite.
+  auto advance = [&](int s) {
+    cp_async_wait<kS - 2>();
+    __syncthreads();
+    issue(s + kS - 1);
+  };
+
+  // S = Q K^T for this warp's 16 rows and the kBc keys of the K tile at
+  // byte offset koff. A fragment: Q rows g, g + 8 at columns kk + 2t, +1;
+  // B fragment: K row (key) 8j + g at the same columns. Promoted every 64
+  // dims.
+  auto logits = [&](int koff, float (&s)[kNt][4]) {
+    const float* qa = reinterpret_cast<const float*>(smem) + (warp * 16 + g) * kLdK + 2 * t;
+    const float* kb = reinterpret_cast<const float*>(smem + koff) + g * kLdK + 2 * t;
+    float big[kNt][4], small[kNt][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (j + e < p.Tk) {
-            const float l = is_valid(j + e) ? lv[e] : kNegInf;
-            pv[e] = expf((l - m) * p.scale);
-            sum += pv[e];
-          }
+    for (int j = 0; j < kNt; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = big[j][e] = small[j][e] = 0.0f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < kDp; k0 += 64) {
+#pragma unroll
+      for (int kk = k0; kk < k0 + 64; kk += 8) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qa + kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * kLdK + kk);
+        unsigned ah[4], al[4];
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          const float2 y = *reinterpret_cast<const float2*>(kb + j * 8 * kLdK + kk);
+          unsigned bh[2], bl[2];
+          split_tf32(y.x, bh[0], bl[0]);
+          split_tf32(y.y, bh[1], bl[1]);
+          mma_3xtf32(big[j], small[j], ah, al, bh, bl);
         }
       }
-      __syncwarp();
-      if (j < tkp) *reinterpret_cast<float4*>(srow + j) = make_float4(pv[0], pv[1], pv[2], pv[3]);
-      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) promote(s[j], big[j], small[j]);
     }
-    sum = warp_sum(sum);
-    if (lane == 0) rscale[r] = (kMasked ? (anyv ? 1.0f : 0.0f) : 1.0f) / sum;
-  }
+  };
+  // Element e of n8 tile j of a thread's fragment: row g + 8 * (e >> 1),
+  // key c0 + 8 * j + 2 * t + (e & 1).
+  auto valid = [&](int c, int r) {
+    return c < p.Tk && (!kMasked || ((kmr == nullptr || kmr[c] != 0) && (!p.causal || c <= qrow[r])));
+  };
 
-  // ---- pass 2: O = P V, then the deferred 1/denom ----
-  float* og = static_cast<float*>(p.o) + b * p.sob + h * p.soh + (long long)q0 * p.sot;
-  const int nout = p.bq * p.Dh;
-  float acc[kMaxOut];
+  // ---- sweep 1: the row max and any-valid flag ----
+  float m[2] = {kNegInf, kNegInf};
+  int anyv[2] = {0, 0};
+  for (int s = 0; s < kS - 1; ++s) issue(s);
+  for (int s = 0; s < n; ++s) {
+    advance(s);
+    const int c0 = (t0 + s) * kBc;
+    float sc[kNt][4];
+    logits(stage_off(s), sc);
 #pragma unroll
-  for (int f = 0; f < kMaxOut; ++f) acc[f] = 0.0f;
-  stream_chunks(kv_off, kv_bytes, vg, p.svt, p, tkp, [=, &acc](int off, int c0, int kc) {
-    const float* Vs = reinterpret_cast<const float*>(smem + off);
-    const float* P = reinterpret_cast<const float*>(smem);
+    for (int j = 0; j < kNt; ++j) {
 #pragma unroll
-    for (int f = 0; f < kMaxOut; ++f) {
-      const int e = tid + f * kThreads;
-      if (e < nout) {
-        const int r = e / p.Dh, d = e - (e / p.Dh) * p.Dh;
-        const float* pr = P + r * p.lds + c0;
-        float a = acc[f];
-        for (int jj = 0; jj < kc; ++jj) a = fmaf(pr[jj], Vs[jj * p.ldq + d], a);
-        acc[f] = a;
+      for (int e = 0; e < 4; ++e) {
+        const bool v = valid(c0 + 8 * j + 2 * t + (e & 1), e >> 1);
+        m[e >> 1] = fmaxf(m[e >> 1], v ? sc[j][e] : kNegInf);
+        anyv[e >> 1] |= v ? 1 : 0;
       }
     }
-  });
+  }
 #pragma unroll
-  for (int f = 0; f < kMaxOut; ++f) {
-    const int e = tid + f * kThreads;
-    if (e < nout) {
-      const int r = e / p.Dh, d = e - (e / p.Dh) * p.Dh;
-      if (r < rows_valid) og[r * p.sot + d] = acc[f] * rscale[r];
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], o));
+      anyv[r] |= __shfl_xor_sync(0xffffffffu, anyv[r], o);
+    }
+  }
+
+  // ---- sweep 2: p against the final max, its f32 sum, O += P V ----
+  float acc[kOt][4];
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.0f;
+  float sum[2] = {0.0f, 0.0f};
+  for (int s = n; s < 2 * n; ++s) {
+    advance(s);
+    const int c0 = (t0 + s - n) * kBc;
+    float sc[kNt][4];
+    logits(stage_off(s), sc);
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + 8 * j + 2 * t + (e & 1);
+        const float l = valid(c, e >> 1) ? sc[j][e] : kNegInf;
+        const float pe = c < p.Tk ? expf((l - m[e >> 1]) * p.scale) : 0.0f;
+        sum[e >> 1] += pe;
+        sc[j][e] = pe;
+      }
+    }
+    // keys 8j + 2t and 8j + 2t + 1 are k-indices t and t + 4: logit tile
+    // j's C fragment is the A fragment of its 8 keys
+    unsigned ph[kNt][4], pl[kNt][4];
+#pragma unroll
+    for (int j = 0; j < kNt; ++j) {
+      split_tf32(sc[j][0], ph[j][0], pl[j][0]);
+      split_tf32(sc[j][2], ph[j][1], pl[j][1]);
+      split_tf32(sc[j][1], ph[j][2], pl[j][2]);
+      split_tf32(sc[j][3], ph[j][3], pl[j][3]);
+    }
+    // V fragment: rows (keys) 8j + 2t and 8j + 2t + 1, column 8d + g; each
+    // output tile's products over the key tile promoted once
+    const float* vb = reinterpret_cast<const float*>(smem + stage_off(s) + Shape::kKBytes) + 2 * t * kLdV + g;
+#pragma unroll
+    for (int d = 0; d < kOt; ++d) {
+      float big[4] = {0.0f, 0.0f, 0.0f, 0.0f}, small[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const float* vr = vb + 8 * j * kLdV + 8 * d;
+        unsigned bh[2], bl[2];
+        split_tf32(vr[0], bh[0], bl[0]);
+        split_tf32(vr[kLdV], bh[1], bl[1]);
+        mma_3xtf32(big, small, ph[j], pl[j], bh, bl);
+      }
+      promote(acc[d], big, small);
+    }
+  }
+
+  // ---- epilogue: the deferred any_valid / denom, f32 pairs through the strides ----
+  float rs[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    rs[r] = !kMasked || anyv[r] ? 1.0f / sum[r] : 0.0f;
+  }
+  float* og = static_cast<float*>(p.o) + b * p.sob + h * p.soh + (long long)q0 * p.sot;
+#pragma unroll
+  for (int d = 0; d < kOt; ++d) {
+    const int col = d * 8 + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      if (col < p.Dh && row < rows_valid)
+        *reinterpret_cast<float2*>(og + row * p.sot + col) =
+            make_float2(acc[d][2 * r] * rs[r], acc[d][2 * r + 1] * rs[r]);
     }
   }
 }
 
-size_t smem_bytes_f32(int bq, int lds, int ldq) {
-  return (size_t)bq * lds * 4 + (size_t)bq * ldq * 4 + (size_t)kStages * kKC * ldq * 4 + (size_t)bq * 4;
-}
-
-// Largest query tile whose logits fit, preferring two blocks per SM; 0 when
-// even 16 rows do not fit.
-int pick_bq(int lds, int ldq) {
-  const int cands[3] = {64, 32, 16};
-  for (int i = 0; i < 3; ++i)
-    if (smem_bytes_f32(cands[i], lds, ldq) <= kSmemTwoPerSM) return cands[i];
-  for (int i = 0; i < 3; ++i)
-    if (smem_bytes_f32(cands[i], lds, ldq) <= kSmemLimit) return cands[i];
-  return 0;
-}
-
-template <bool kMasked>
-int launch_f32(Params p, cudaStream_t stream) {
+template <int kDp, bool kMasked>
+int launch_flash_f32(const Params& p, cudaStream_t stream) {
+  constexpr int smem_bytes = F32Shape<kDp>::kSmem;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(attn_f32_kernel<kMasked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemLimit);
+    cudaError_t e = cudaFuncSetAttribute(flash_f32_kernel<kDp, kMasked>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const int tkp = (p.Tk + 15) / 16 * 16;
-  p.dp = (p.Dh + 15) / 16 * 16;
-  p.ldq = pad_ldq(p.dp);
-  p.lds = pad_lds(tkp, p.dp);
-  p.bq = pick_bq(p.lds, p.ldq);
-  if (p.bq == 0) return (int)cudaErrorInvalidValue;  // key row too long for shared memory
-  const size_t smem = smem_bytes_f32(p.bq, p.lds, p.ldq);
-  dim3 grid((p.Tq + p.bq - 1) / p.bq, p.H, p.B);
-  attn_f32_kernel<kMasked><<<grid, kThreads, smem, stream>>>(p);
+  dim3 grid((p.Tq + kBr - 1) / kBr, p.H, p.B);
+  flash_f32_kernel<kDp, kMasked><<<grid, kFlashThreads, smem_bytes, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <bool kMasked>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  if (p.Dh <= 64) return launch_flash_f32<64, kMasked>(p, stream);
+  if (p.Dh <= 128) return launch_flash_f32<128, kMasked>(p, stream);
+  if (p.Dh <= 256) return launch_flash_f32<256, kMasked>(p, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -595,7 +696,7 @@ extern "C" int attention_fwd(int dtype, const void* q, const void* k, const void
                              long long svh, long long sob, long long sot, long long soh,
                              long long skmb, int causal, float scale, void* stream) {
   Params p{q, k, v, km, o, B, H, KVH, Tq, Tk, Dh, sqb, sqt, sqh, skb, skt, skh, svb, svt, svh,
-           sob, sot, soh, skmb, causal, scale, 0, 0, 0, 0};
+           sob, sot, soh, skmb, causal, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool masked = km != nullptr || causal;
   if (dtype == 1) return masked ? launch_bf16<true>(p, s) : launch_bf16<false>(p, s);

@@ -48,9 +48,39 @@
 //    shuffles, weighted by qm and stored per (doc, row); after the sweep one
 //    warp per (query, doc) sums its rows in a fixed order into the block's
 //    accumulator, which is written out once.
-// f32 inputs keep the first design (f32_kernel): plain FMA in the mma.sync
-// fragment layout (no TF32), a double-buffered ring of 32 or 64 doc tokens,
-// 8 docs a block; no main path feeds MaxSim f32.
+//
+// f32 design (tf32x3_kernel): the same data flow on mma.sync. Every f32
+// index search runs it: cli/encode_cli.py writes f32 embeddings, and
+// retrieval/search.py casts the queries to the index's dtype, so
+// cli/search.py on a multi-vector (ColPali) index scores through it.
+//  - a block of 8 warps owns qpb whole queries and a slice of docs, planned
+//    by ops/maxsim_cuda.py:plan_grid_f32 (plan_grid's search for f32's
+//    tiles) on a one-dimensional grid;
+//  - the 128-row query tile (f32, rows 136 floats apart) stays resident for
+//    the sweep; each warp owns 16 rows;
+//  - the doc tokens are packed across doc boundaries as in bf16 (td8 a doc)
+//    and stream through a 3-stage cp.async ring in tiles of 64 tokens,
+//    8 column groups each;
+//  - each warp's 16 x 64 similarity tile is 8 n8 tiles of
+//    mma.sync.m16n8k8.f32.tf32.tf32.f32, each product three of them
+//    (3xTF32): every f32 fragment element is split in registers into a TF32
+//    high part (rounded to nearest, ties away) and the truncated TF32
+//    remainder, a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in f32, about 2^-21
+//    of a.b a product (one TF32 pass, 2^-11, fails the 1e-5 gate;
+//    tests/torch_tf32.py emulates both). hi.hi and the cross terms
+//    accumulate in two chains of 64 dims each, added into f32 registers
+//    rounded to nearest (the tensor core's accumulator rounds toward zero,
+//    a bias that grows with the chain). D is permuted inside each chunk of
+//    8 (k-index t is element 2t, t + 4 is 2t + 1), so both fragments are
+//    float2 reads, a half-warp's on 32 banks;
+//  - n8 tile j is column group j: its masked maxima, the doc bookkeeping,
+//    the per-(doc, row) values and the fixed-order sums are the bf16
+//    kernel's (templated on the group count).
+// Bound on an H100 SXM at a COCO-5k-sized ColPali index searched by 64
+// queries of 32 tokens (d [5000, 1030, 128] f32, 2.64 GB): 2.70 TFLOP, 40 ms
+// at the 67 TFLOP/s f32 peak outside the tensor cores (16 ms at 165, a
+// third of the TF32 peak: the three passes), against 0.8 ms of bytes: bound
+// by operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,9 +183,10 @@ __device__ __forceinline__ void fence_acc(float (&a)[64]) {
 // proxy: each thread fences its landed copies before the barrier.
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
-struct WParams {
-  const __nv_bfloat16* q;  // [NQ, TQ, D], last dim contiguous
-  const __nv_bfloat16* d;  // [ND, TD, D], last dim contiguous
+template <typename T>
+struct MParams {
+  const T* q;              // [NQ, TQ, D], last dim contiguous
+  const T* d;              // [ND, TD, D], last dim contiguous
   const float* qm;         // [NQ, TQ] contiguous f32 weights, or nullptr (all ones)
   const int* dm;           // [ND, TD] contiguous int32 mask, or nullptr (all valid)
   float* out;              // [NQ, ND] contiguous
@@ -166,10 +197,13 @@ struct WParams {
   int nslices;  // slices of the docs
   int td8;      // TD rounded up to 8: the packed stride of a doc's tokens
   unsigned long long inv_td8;  // ceil(2^40 / td8): pos / td8 is (pos * inv_td8) >> 40 while pos * td8 < 2^40
-  int aligned;  // td8 divides 128: every doc lies inside one ring tile
+  int aligned;  // td8 divides the ring tile: every doc lies inside one
 };
+using WParams = MParams<__nv_bfloat16>;
+using FParams = MParams<float>;
 
-__device__ __forceinline__ int div_td8(int pos, const WParams& p) {
+template <typename P>
+__device__ __forceinline__ int div_td8(int pos, const P& p) {
   return (int)(((unsigned long long)pos * p.inv_td8) >> 40);
 }
 
@@ -280,13 +314,14 @@ __device__ __forceinline__ void open_doc(Sweep& sw, int doc, int lane) {
   }
 }
 
-// Tile t's docs when td8 = 8 K divides 128: 16 / K whole docs, doc j on
-// groups [j K, j K + K). Each doc's maxima, their quad shuffles interleaved
-// (one shuffle latency for all docs, not one a doc), stored per row.
-template <int K>
-__device__ __forceinline__ void aligned_max(const float (&g0)[16], const float (&g1)[16], const Sweep& sw, int t,
+// Tile t's docs when td8 = 8 K divides the tile's 8 NG columns: NG / K
+// whole docs, doc j on groups [j K, j K + K). Each doc's maxima, their quad
+// shuffles interleaved (one shuffle latency for all docs, not one a doc),
+// stored per row.
+template <int K, int NG>
+__device__ __forceinline__ void aligned_max(const float (&g0)[NG], const float (&g1)[NG], const Sweep& sw, int t,
                                             int ndocs, int lane) {
-  constexpr int D = 16 / K;
+  constexpr int D = NG / K;
   float m0[D], m1[D];
 #pragma unroll
   for (int j = 0; j < D; ++j) {
@@ -317,12 +352,15 @@ __device__ __forceinline__ void aligned_max(const float (&g0)[16], const float (
   }
 }
 
-// The running max over tile t's group maxima, flushing each doc whose columns
-// end. Column group g belongs to one doc, the same for every thread, so every
-// branch here is uniform; a tile inside one doc takes a tree of maxima.
-__device__ __forceinline__ void doc_max(float (&g0)[16], float (&g1)[16], Sweep& sw, const WParams& p, int t,
-                                       int total, int lane) {
-  int pos = t * kBN;
+// The running max over tile t's NG group maxima, flushing each doc whose
+// columns end. Column group g belongs to one doc, the same for every thread,
+// so every branch here is uniform; a tile inside one doc takes a tree of
+// maxima.
+template <int NG, typename P>
+__device__ __forceinline__ void doc_max(float (&g0)[NG], float (&g1)[NG], Sweep& sw, const P& p, int t, int total,
+                                        int lane) {
+  constexpr int kCols = 8 * NG;
+  int pos = t * kCols;
   if (pos >= total) return;  // past the sweep's last tile
   if (p.aligned) {
     const int ndocs = total / p.td8;
@@ -331,15 +369,18 @@ __device__ __forceinline__ void doc_max(float (&g0)[16], float (&g1)[16], Sweep&
       case 16: aligned_max<2>(g0, g1, sw, t, ndocs, lane); break;
       case 32: aligned_max<4>(g0, g1, sw, t, ndocs, lane); break;
       case 64: aligned_max<8>(g0, g1, sw, t, ndocs, lane); break;
-      default: aligned_max<16>(g0, g1, sw, t, ndocs, lane); break;
+      default: aligned_max<NG>(g0, g1, sw, t, ndocs, lane); break;  // td8 = 8 NG: a doc a tile
     }
     return;
   }
   int doc = div_td8(pos, p);
-  if (pos + kBN <= total && div_td8(pos + kBN - 1, p) == doc) {
+  if (pos + kCols <= total && div_td8(pos + kCols - 1, p) == doc) {
     open_doc(sw, doc, lane);
+    if constexpr (NG == 16) {
 #pragma unroll
-    for (int g = 0; g < 8; ++g) g0[g] = fmaxf(g0[g], g0[g + 8]), g1[g] = fmaxf(g1[g], g1[g + 8]);
+      for (int g = 0; g < 8; ++g) g0[g] = fmaxf(g0[g], g0[g + 8]), g1[g] = fmaxf(g1[g], g1[g + 8]);
+    }
+    static_assert(NG == 16 || NG == 8, "a ring tile of 64 or 128 doc tokens");
 #pragma unroll
     for (int g = 0; g < 4; ++g) g0[g] = fmaxf(g0[g], g0[g + 4]), g1[g] = fmaxf(g1[g], g1[g + 4]);
 #pragma unroll
@@ -350,7 +391,7 @@ __device__ __forceinline__ void doc_max(float (&g0)[16], float (&g1)[16], Sweep&
   }
   int off = pos - doc * p.td8;
 #pragma unroll
-  for (int g = 0; g < kBN / 8; ++g) {
+  for (int g = 0; g < NG; ++g) {
     if (pos < total) {
       open_doc(sw, doc, lane);
       sw.m0 = fmaxf(sw.m0, g0[g]);
@@ -519,202 +560,257 @@ int launch_bf16(WParams p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA in the mma.sync fragment layout
+// f32: 3xTF32 mma.sync on the bf16 kernel's data flow
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBM = kWarps * 16;  // query-token rows per row tile
-constexpr int kMaxBN = 64;        // doc tokens per doc tile
-constexpr int kMaxSub = kMaxBN / 8;
-constexpr int kBD = 8;            // docs per block
+constexpr int kFThreads = 256;       // 8 warps, 16 rows of the row tile each
+constexpr int kFNG = 8;              // column groups of a ring tile
+constexpr int kFBN = 8 * kFNG;       // doc tokens of a ring tile
+constexpr int kFStages = 3;
+constexpr int kFLd = kMaxD + 8;      // shared row stride, floats: 8 mod 32
+constexpr int kFQBytes = kRows * kFLd * 4;
+constexpr int kFTileBytes = kFBN * kFLd * 4;
+constexpr int kFChunks = kMaxD / 4;  // 16-byte chunks of a row
 
-struct Params {
-  const float* q;   // [NQ, TQ, D], last dim contiguous
-  const float* d;   // [ND, TD, D], last dim contiguous
-  const float* qm;  // [NQ, TQ] contiguous f32 weights, or nullptr (all ones)
-  const int* dm;    // [ND, TD] contiguous int32 mask, or nullptr (all valid)
-  float* out;       // [NQ, ND] contiguous
-  int NQ, TQ, ND, TD, D;
-  long long sqn, sqt, sdn, sdt;  // element strides
-  int qpb;  // whole queries per block
-  int bn;   // doc tokens per tile (32 or 64)
-  int dp;   // D padded to a multiple of 16
-  int ld;   // shared-memory row stride in elements: dp + 8
-};
-
-// Start copying rows [0, rows) of a tile into shared memory (row stride ld),
-// 16 bytes at a time; row r of the tile is global row src_row(r), or zeros
-// where src_row returns nullptr. Columns >= D are zero-filled; D is a
-// multiple of 8, so a 16-byte vector never straddles it.
-template <typename RowFn>
-__device__ __forceinline__ void load_tile_async(float* dst, int rows, const Params& p, RowFn src_row) {
-  constexpr int V = 4;
-  const int vpr = p.dp / V;
-  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
-    const int r = i / vpr;
-    const int c = (i - r * vpr) * V;
-    const float* row = src_row(r);
-    const bool valid = row != nullptr && c < p.D;
-    cp_async16(static_cast<unsigned>(__cvta_generic_to_shared(dst + r * p.ld + c)), valid ? row + c : p.q, valid);
+// TF32 parts of an f32 for 3xTF32: hi is x rounded to nearest (ties away
+// from zero) at 10 mantissa bits, lo the exact remainder x - hi truncated
+// to 10 bits. Both are bit patterns the mma reads as .tf32.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+// d += a.b for a 16x8 tf32 A fragment and an 8x8 B fragment (fragment
+// layouts: PTX ISA, "mma.m16n8k8").
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// a.b in 3xTF32: hi.hi into big, the two cross terms into small (two
+// independent accumulator chains).
+__device__ __forceinline__ void mma_3xtf32(float (&big)[4], float (&small)[4], const unsigned (&ah)[4],
+                                           const unsigned (&al)[4], const unsigned (&bh)[2],
+                                           const unsigned (&bl)[2]) {
+  mma_tf32(small, al, bh[0], bh[1]);
+  mma_tf32(small, ah, bl[0], bl[1]);
+  mma_tf32(big, ah, bh[0], bh[1]);
+}
+// d += big + small in f32 registers, rounded to nearest: the tensor core's
+// accumulator rounds toward zero, a bias that grows with the chain, so each
+// chain spans 64 dims and then lands here.
+__device__ __forceinline__ void promote(float (&d)[4], float (&big)[4], float (&small)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    d[e] += big[e] + small[e];
+    big[e] = small[e] = 0.0f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) f32_kernel(Params p) {
+// Start the copy of the 128-row query tile whose first row is lr0 of the
+// block's flattened (query, token) rows into rows kFLd floats apart; rows
+// past nrows and columns past D are zeros. Warp w copies rows w + 8 k, a
+// 16-byte chunk a lane.
+__device__ __forceinline__ void load_q_tile_f32(unsigned dst, const FParams& p, int q0, int nrows, int lr0) {
+  const int c = threadIdx.x & (kFChunks - 1);
+#pragma unroll 4
+  for (int k = 0; k < kRows / 8; ++k) {
+    const int r = (threadIdx.x >> 5) + 8 * k;
+    const int lr = lr0 + r;
+    const int ql = lr / p.TQ;
+    const bool valid = lr < nrows && c < p.D / 4;
+    const float* src = valid ? p.q + (long long)(q0 + ql) * p.sqn + (long long)(lr - ql * p.TQ) * p.sqt + c * 4 : p.q;
+    cp_async16(dst + (r * kFLd + c * 4) * 4, src, valid);
+  }
+}
+
+// Start the copy of ring tile t of the slice's packed doc tokens (positions
+// 64 t .. 64 t + 63; doc j of the slice holds positions j * td8 + s for
+// s < TD) into slot dst, and write the tile's column bias (0 for a valid
+// token, -1e30 for a masked or padding one).
+__device__ __forceinline__ void load_d_tile_f32(unsigned dst, float* bias, const FParams& p, int d0, int ndocs,
+                                                int t) {
+  const int c = threadIdx.x & (kFChunks - 1);
+  const int total = ndocs * p.td8;
+#pragma unroll
+  for (int k = 0; k < kFBN / 8; ++k) {
+    const int r = (threadIdx.x >> 5) + 8 * k;
+    const int pos = t * kFBN + r;
+    const int doc = div_td8(pos, p);
+    const int s = pos - doc * p.td8;
+    const bool valid = pos < total && s < p.TD && c < p.D / 4;
+    const float* src = valid ? p.d + (long long)(d0 + doc) * p.sdn + (long long)s * p.sdt + c * 4 : p.d;
+    cp_async16(dst + (r * kFLd + c * 4) * 4, src, valid);
+  }
+  if (threadIdx.x < kFBN) {
+    const int pos = t * kFBN + threadIdx.x;
+    const int doc = div_td8(pos, p);
+    const int s = pos - doc * p.td8;
+    bool valid = pos < total && s < p.TD;
+    if (valid && p.dm != nullptr) valid = __ldg(p.dm + (long long)(d0 + doc) * p.TD + s) != 0;
+    bias[threadIdx.x] = valid ? 0.0f : kNegInf;
+  }
+}
+
+__global__ void __launch_bounds__(kFThreads, 1) tf32x3_kernel(FParams p) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int d0 = blockIdx.x * kBD;
-  const int q0 = blockIdx.y * p.qpb;
-  const int ndocs = min(kBD, p.ND - d0);
-  const int nrows = p.qpb * p.TQ;  // flattened (query, token) rows this block owns
-  const int nrt = (nrows + kBM - 1) / kBM;
-  const int tpd = (p.TD + p.bn - 1) / p.bn;  // token tiles per doc
-  const int nsub = p.bn / 8;
+  const int g = lane >> 2, t = lane & 3;  // fragment row (and row + 8), column pair
+  const int group = blockIdx.x / p.nslices;
+  const int slice = blockIdx.x - group * p.nslices;
+  const int q0 = group * p.qpb;
+  const int nq = min(p.qpb, p.NQ - q0);
+  const int nrows = nq * p.TQ;  // flattened (query, token) rows this block owns
+  const int d0 = slice * p.dps;
+  const int ndocs = min(p.dps, p.ND - d0);
+  const int total = ndocs * p.td8;
+  const int n = (total + kFBN - 1) / kFBN;  // ring tiles a row tile sweeps
 
-  // layout: Q [kBM][ld] | ring [2][kMaxBN][ld] | qms [kBM] | rv [kBD][kBM] | acc [qpb][kBD]
-  const int tile_bytes = kMaxBN * p.ld * (int)sizeof(float);
-  const int ring_off = kBM * p.ld * (int)sizeof(float);
-  float* qms = reinterpret_cast<float*>(smem + ring_off + 2 * tile_bytes);
-  float* rv = qms + kBM;
-  float* accs = rv + kBD * kBM;
+  // layout: Q tile | ring [kFStages] | bias [kFStages][kFBN] | rv [dps][kRows] | accs [qpb][dps]
+  const unsigned q_s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned ring_s = q_s + kFQBytes;
+  float* bias = reinterpret_cast<float*>(smem + kFQBytes + kFStages * kFTileBytes);
+  float* rv = bias + kFStages * kFBN;
+  float* accs = rv + p.dps * kRows;
 
-  for (int i = tid; i < p.qpb * kBD; i += kThreads) accs[i] = 0.0f;
+  for (int i = tid; i < p.qpb * p.dps; i += kFThreads) accs[i] = 0.0f;
 
-  // this thread's rows of a row tile, in the mma accumulator layout
-  const int r0 = warp * 16 + (lane >> 2);
-  const int r1 = r0 + 8;
-
+  const int nrt = (nrows + kRows - 1) / kRows;
   for (int rt = 0; rt < nrt; ++rt) {
-    const int lr0 = rt * kBM;
-    auto q_row = [&](int r) -> const float* {
-      const int lr = lr0 + r;
-      const int ql = lr / p.TQ;
-      if (lr >= nrows || q0 + ql >= p.NQ) return nullptr;
-      return p.q + (long long)(q0 + ql) * p.sqn + (long long)(lr - ql * p.TQ) * p.sqt;
-    };
-    load_tile_async(reinterpret_cast<float*>(smem), kBM, p, q_row);  // lands with doc tile 0
-    for (int r = tid; r < kBM; r += kThreads) {
-      const int lr = lr0 + r;
-      const int ql = lr / p.TQ;
-      const bool valid = lr < nrows && q0 + ql < p.NQ;
-      qms[r] = valid ? (p.qm ? p.qm[(long long)(q0 + ql) * p.TQ + (lr - ql * p.TQ)] : 1.0f) : 0.0f;
+    const int lr0 = rt * kRows;
+    Sweep sw;
+    sw.cur = 0;
+    sw.m0 = sw.m1 = kNegInf;
+    sw.rv = rv + 16 * warp + g;
+    {
+      const int r0 = lr0 + 16 * warp + g;
+      float w[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int lr = r0 + 8 * e;
+        const int qq = lr / p.TQ;
+        w[e] = lr < nrows ? (p.qm ? __ldg(p.qm + (long long)(q0 + qq) * p.TQ + (lr - qq * p.TQ)) : 1.0f) : 0.0f;
+      }
+      sw.w0 = w[0];
+      sw.w1 = w[1];
     }
 
-    const int n = ndocs * tpd;
-    auto issue = [&](int i) {
-      if (i < n) {
-        const int dl = i / tpd;
-        const int s0 = (i - dl * tpd) * p.bn;
-        const float* doc = p.d + (long long)(d0 + dl) * p.sdn;
-        load_tile_async(reinterpret_cast<float*>(smem + ring_off + (i & 1) * tile_bytes), p.bn, p,
-                        [&](int r) -> const float* { return s0 + r < p.TD ? doc + (long long)(s0 + r) * p.sdt : nullptr; });
-      }
-      cp_async_commit();  // one group per tile, empty past the end
-    };
-
-    float m0 = kNegInf, m1 = kNegInf;  // running max of rows r0 and r1 over the current doc
-    issue(0);
+    __syncthreads();  // the last row tile's reads of Q, the ring and rv are done
+    load_q_tile_f32(q_s, p, q0, nrows, lr0);
+#pragma unroll
+    for (int i = 0; i < kFStages - 1; ++i) {  // Q lands with tile 0
+      if (i < n) load_d_tile_f32(ring_s + i * kFTileBytes, bias + i * kFBN, p, d0, ndocs, i);
+      cp_async_commit();
+    }
     for (int i = 0; i < n; ++i) {
-      cp_async_wait<0>();  // tile i (and the Q tile) landed, for this thread
-      __syncthreads();     // ... for every thread; and tile i-1's buffer is free
-      issue(i + 1);
-      const int dl = i / tpd;
-      const int st = i - dl * tpd;
-      const int buf_off = ring_off + (i & 1) * tile_bytes;
+      // tile i has landed for every thread, and every warp is done with
+      // tile i - 1, whose slot tile i + kFStages - 1 then takes
+      cp_async_wait<kFStages - 2>();
+      __syncthreads();
+      const int tn = i + kFStages - 1;
+      if (tn < n)
+        load_d_tile_f32(ring_s + (tn % kFStages) * kFTileBytes, bias + (tn % kFStages) * kFBN, p, d0, ndocs, tn);
+      cp_async_commit();
+      const int slot = i % kFStages;
 
-      float acc[kMaxSub][4];
-      const float* Qs = reinterpret_cast<const float*>(smem);
-      const float* Ds = reinterpret_cast<const float*>(smem + buf_off);
-      const float* qa = Qs + r0 * p.ld;
-      const float* qb = Qs + r1 * p.ld;
+      // the warp's 16 x 64 similarity tile: A fragment, query rows g and
+      // g + 8 at columns kk + 2t, +1; B fragment, doc token 8j + g there
+      float acc[kFNG][4];
+      {
+        const float* qa = reinterpret_cast<const float*>(smem) + (16 * warp + g) * kFLd + 2 * t;
+        const float* db = reinterpret_cast<const float*>(smem + kFQBytes + slot * kFTileBytes) + g * kFLd + 2 * t;
+        float big[kFNG][4], small[kFNG][4];
 #pragma unroll
-      for (int j = 0; j < kMaxSub; ++j) {
-        if (j < nsub) {
+        for (int j = 0; j < kFNG; ++j)
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float* dr = Ds + (j * 8 + 2 * (lane & 3) + e) * p.ld;
-            float sa = 0.0f, sb = 0.0f;
-            for (int k = 0; k < p.D; ++k) {
-              sa = fmaf(qa[k], dr[k], sa);
-              sb = fmaf(qb[k], dr[k], sb);
+          for (int e = 0; e < 4; ++e) acc[j][e] = big[j][e] = small[j][e] = 0.0f;
+#pragma unroll
+        for (int k0 = 0; k0 < kMaxD; k0 += 64) {  // each chain spans 64 dims
+#pragma unroll 4
+          for (int kk = k0; kk < k0 + 64; kk += 8) {
+            const float2 x0 = *reinterpret_cast<const float2*>(qa + kk);
+            const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * kFLd + kk);
+            unsigned ah[4], al[4];
+            split_tf32(x0.x, ah[0], al[0]);
+            split_tf32(x1.x, ah[1], al[1]);
+            split_tf32(x0.y, ah[2], al[2]);
+            split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+            for (int j = 0; j < kFNG; ++j) {
+              const float2 y = *reinterpret_cast<const float2*>(db + j * 8 * kFLd + kk);
+              unsigned bh[2], bl[2];
+              split_tf32(y.x, bh[0], bl[0]);
+              split_tf32(y.y, bh[1], bl[1]);
+              mma_3xtf32(big[j], small[j], ah, al, bh, bl);
             }
-            acc[j][e] = sa;
-            acc[j][2 + e] = sb;
           }
-        }
-      }
-
-      // masked running max over this tile's doc tokens
-      const int s0 = st * p.bn;
-      const int* dmr = p.dm ? p.dm + (long long)(d0 + dl) * p.TD : nullptr;
 #pragma unroll
-      for (int j = 0; j < kMaxSub; ++j) {
-        if (j < nsub) {
+          for (int j = 0; j < kFNG; ++j) promote(acc[j], big[j], small[j]);
+        }
+      }
+      // n8 tile j is column group j: its masked maxima per row, then the
+      // running max over the tile's docs
+      float g0[kFNG], g1[kFNG];
+      const float* bt = bias + slot * kFBN + 2 * t;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int s = s0 + j * 8 + 2 * (lane & 3) + e;
-            const bool valid = s < p.TD && (dmr == nullptr || __ldg(dmr + s) != 0);
-            m0 = fmaxf(m0, valid ? acc[j][e] : kNegInf);
-            m1 = fmaxf(m1, valid ? acc[j][2 + e] : kNegInf);
-          }
-        }
+      for (int j = 0; j < kFNG; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(bt + 8 * j);
+        g0[j] = fmaxf(acc[j][0] + bb.x, acc[j][1] + bb.y);
+        g1[j] = fmaxf(acc[j][2] + bb.x, acc[j][3] + bb.y);
       }
-      if (st == tpd - 1) {  // the doc's last tile: combine the quad, weight, store
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
-        if ((lane & 3) == 0) {
-          rv[dl * kBM + r0] = m0 * qms[r0];
-          rv[dl * kBM + r1] = m1 * qms[r1];
-        }
-        m0 = m1 = kNegInf;
-      }
+      doc_max(g0, g1, sw, p, i, total, lane);
     }
-    __syncthreads();  // rv complete; Q and the ring are free
+    if (!p.aligned) flush(sw, lane);  // the last doc
+    __syncthreads();
 
-    // one warp per (query, doc) pair of this row tile: a fixed-order sum
-    const int lr1 = min(lr0 + kBM, nrows);
+    // one warp per (query, doc) pair of this row tile: its rows' values
+    // summed in a fixed order, into the accumulator
+    const int lr1 = min(lr0 + kRows, nrows);
     const int qa = lr0 / p.TQ, qb = (lr1 - 1) / p.TQ;
     const int npairs = (qb - qa + 1) * ndocs;
-    for (int pp = warp; pp < npairs; pp += kWarps) {
+    for (int pp = warp; pp < npairs; pp += kFThreads / 32) {
       const int ql = qa + pp / ndocs;
       const int dl = pp - (pp / ndocs) * ndocs;
       const int lo = max(ql * p.TQ, lr0) - lr0;
       const int hi = min((ql + 1) * p.TQ, lr1) - lr0;
       float s = 0.0f;
-      for (int r = lo + lane; r < hi; r += 32) s += rv[dl * kBM + r];
+      for (int r = lo + lane; r < hi; r += 32) s += rv[dl * kRows + r];
       s = warp_sum(s);
-      if (lane == 0) accs[ql * kBD + dl] += s;
+      if (lane == 0) accs[ql * p.dps + dl] += s;
     }
-    __syncthreads();
   }
-
-  for (int i = tid; i < p.qpb * ndocs; i += kThreads) {
-    const int ql = i / ndocs;
-    const int dl = i - ql * ndocs;
-    if (q0 + ql < p.NQ) p.out[(long long)(q0 + ql) * p.ND + d0 + dl] = accs[ql * kBD + dl];
+  __syncthreads();
+  for (int pp = tid; pp < nq * ndocs; pp += kFThreads) {
+    const int ql = pp / ndocs;
+    const int dl = pp - ql * ndocs;
+    p.out[(long long)(q0 + ql) * p.ND + d0 + dl] = accs[ql * p.dps + dl];
   }
 }
 
-int launch_f32(Params p, cudaStream_t stream) {
+size_t f32_smem_bytes(const FParams& p) {
+  return (size_t)kFQBytes + (size_t)kFStages * kFTileBytes + (size_t)kFStages * kFBN * sizeof(float) +
+         (size_t)p.dps * kRows * sizeof(float) + (size_t)p.qpb * p.dps * sizeof(float);
+}
+
+int launch_f32(FParams p, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
+    cudaError_t e = cudaFuncSetAttribute(tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemLimit);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  p.dp = (p.D + 15) / 16 * 16;
-  p.ld = p.dp + 8;
-  p.bn = p.TD <= 32 ? 32 : kMaxBN;
-  p.qpb = p.TQ >= kBM ? 1 : kBM / p.TQ;
-  const size_t smem = (size_t)(kBM + 2 * kMaxBN) * p.ld * sizeof(float) +
-                      (size_t)(kBM + kBD * kBM + p.qpb * kBD) * sizeof(float);
-  const unsigned gy = (unsigned)((p.NQ + p.qpb - 1) / p.qpb);
-  if (smem > kSmemLimit || gy > 65535u) return (int)cudaErrorInvalidValue;
-  dim3 grid((p.ND + kBD - 1) / kBD, gy);
-  f32_kernel<<<grid, kThreads, smem, stream>>>(p);
+  p.td8 = (p.TD + 7) / 8 * 8;
+  p.inv_td8 = ((1ull << 40) + p.td8 - 1) / p.td8;
+  p.aligned = kFBN % p.td8 == 0;
+  const size_t smem = f32_smem_bytes(p);
+  const long long groups = (p.NQ + p.qpb - 1) / p.qpb;
+  const long long blocks = groups * p.nslices;  // a one-dimensional grid: up to 2^31 - 1 blocks
+  if (p.qpb <= 0 || p.dps <= 0 || p.nslices != (p.ND + p.dps - 1) / p.dps ||
+      ((long long)p.dps * p.td8 + kFBN) * p.td8 >= (1LL << 40) || smem > kSmemLimit || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  tf32x3_kernel<<<(unsigned)blocks, kFThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -723,19 +819,16 @@ int launch_f32(Params p, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. q [NQ, TQ, D] and d [ND, TD, D] with a
 // contiguous last dim and 16-byte aligned rows; qm f32 [NQ, TQ] or nullptr;
 // dm int32 [ND, TD] or nullptr; out f32 [NQ, ND]. Strides in elements. qpb
-// and dps are the bf16 kernel's grid plan (ops/maxsim_cuda.py:plan_grid:
-// queries per block, docs per slice); the f32 kernel plans its own. Returns a
+// and dps are the grid plan (queries per block, docs per slice) of
+// ops/maxsim_cuda.py: plan_grid for bf16, plan_grid_f32 for f32. Returns a
 // cudaError_t code.
 extern "C" int maxsim_fwd(int dtype, const void* q, const void* d, const float* qm, const int* dm, float* out,
                           int NQ, int TQ, int ND, int TD, int D, long long sqn, long long sqt, long long sdn,
                           long long sdt, int qpb, int dps, void* stream) {
-  if (NQ <= 0 || TQ <= 0 || ND <= 0 || TD <= 0 || D <= 0 || D > kMaxD || D % 8)
+  if (NQ <= 0 || TQ <= 0 || ND <= 0 || TD <= 0 || D <= 0 || D > kMaxD || D % 8 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    WParams p{};
-    p.q = static_cast<const __nv_bfloat16*>(q);
-    p.d = static_cast<const __nv_bfloat16*>(d);
+  auto fill = [&](auto& p) {
     p.qm = qm;
     p.dm = dm;
     p.out = out;
@@ -743,12 +836,17 @@ extern "C" int maxsim_fwd(int dtype, const void* q, const void* d, const float* 
     p.sqn = sqn, p.sqt = sqt, p.sdn = sdn, p.sdt = sdt;
     p.qpb = qpb, p.dps = dps;
     p.nslices = dps > 0 ? (ND + dps - 1) / dps : 0;
+  };
+  if (dtype == 1) {
+    WParams p{};
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.d = static_cast<const __nv_bfloat16*>(d);
+    fill(p);
     return launch_bf16(p, s);
   }
-  if (dtype == 0) {
-    Params p{static_cast<const float*>(q), static_cast<const float*>(d), qm, dm, out, NQ, TQ, ND, TD, D,
-             sqn, sqt, sdn, sdt, 0, 0, 0, 0};
-    return launch_f32(p, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  FParams p{};
+  p.q = static_cast<const float*>(q);
+  p.d = static_cast<const float*>(d);
+  fill(p);
+  return launch_f32(p, s);
 }

@@ -9,12 +9,16 @@ whole key row, probabilities cast to V's dtype before an f32-accumulated PV,
 the softmax denominator applied after PV, exact zeros for a fully masked row,
 and grouped-query attention with KVH | H.
 
-Where the kernel keeps its logits: in bf16, in registers. A block of 4 warps
-takes 64 query rows, each warp 16 of them end to end, and sweeps the key
-tiles twice (the row max, then p, its sum and PV with ``mma.sync``), so its
-shared memory holds Q and a K/V ring and does not grow with Tk; any key row
-length is taken. In f32 (tests and chip_smoke.py only) it writes the f32
-logits of the whole key row to shared memory, which caps Tk at about 3300.
+Where the kernel keeps its logits: in registers, in both dtypes. A block of
+4 warps takes 64 query rows, each warp 16 of them end to end, and sweeps the
+key tiles twice (the row max, then p, its sum and PV with ``mma.sync``), so
+its shared memory holds Q and a K/V ring and does not grow with Tk; any key
+row length is taken. In f32 every product is three TF32 tensor-core products
+of split operands (3xTF32, within about 2^-21 of f32 a product) and p stays
+f32. The f32 kernel serves Workload B's f32 models: ``cli/train_rl.py`` and
+``cli/verify_rl.py`` at their default ``--model-size small``, a
+``--save-base`` base read back by ``--base-params``, and
+``dryrun_multichip``.
 
 :func:`fused_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version
@@ -35,9 +39,11 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
 # Kernel launches made by fused_attention and by fused_attention_qkv, each
-# counted apart (plain counts, read by chip_smoke.py).
+# counted apart, and the f32 kernel's launches of either (plain counts, read
+# by chip_smoke.py).
 launches = 0
 qkv_launches = 0
+f32_launches = 0
 
 _c = ctypes
 _ARGTYPES = (
@@ -171,10 +177,17 @@ def _needs_grad(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+def _count_f32(out: torch.Tensor) -> None:
+    global f32_launches
+    if out.dtype == torch.float32:
+        f32_launches += 1
+
+
 def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
     global launches
     out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
     launches += 1
+    _count_f32(out)
     return out
 
 
@@ -243,6 +256,7 @@ def _launch_qkv(qkv, km, causal, sm_scale, h, kvh) -> torch.Tensor:
     with torch.profiler.record_function("fused_attention_qkv"):
         out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
     qkv_launches += 1
+    _count_f32(out)
     return out
 
 

@@ -11,10 +11,14 @@ count a masked doc token as ``-1e30``, apply the query mask as an f32 weight
 and sum over query tokens in f32; the result is f32 [NQ, ND].
 
 :func:`maxsim_cuda` launches the kernel for CUDA tensors and raises on
-anything the kernel does not take; for bf16 it plans the kernel's grid with
-:func:`plan_grid` (queries per block, docs per slice). :func:`maxsim_scores`
-routes by ``impl`` ("auto"/"pallas": the kernel for CUDA tensors, "xla": the
-plain version); tensors that lie on the CPU always take the plain version.
+anything the kernel does not take; it plans the kernel's grid (queries per
+block, docs per slice) with :func:`plan_grid` for bf16 and
+:func:`plan_grid_f32` for f32. The f32 kernel multiplies in 3xTF32 on the
+tensor cores (within about 2^-21 of f32 a product); every search of an f32
+index (``cli/search.py`` on ``cli/encode_cli.py``'s output) runs it.
+:func:`maxsim_scores` routes by ``impl`` ("auto"/"pallas": the kernel for
+CUDA tensors, "xla": the plain version); tensors that lie on the CPU always
+take the plain version.
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ IMPLS = ("auto", "pallas", "xla")
 # plain version (1 GiB): queries are chunked too so that long sweeps fit.
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
-# Kernel launches made by maxsim_cuda (a plain count, read by chip_smoke.py).
+# Kernel launches made by maxsim_cuda, and those of the f32 kernel among them
+# (plain counts, read by chip_smoke.py).
 launches = 0
+f32_launches = 0
 
 _c = ctypes
 _ARGTYPES = [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 4 + [_c.c_int] * 2 + [_c.c_void_p]
@@ -47,11 +53,15 @@ _ROWS, _BN, _FILL_TILES = 128, 128, 3
 # Shared memory a block may spend on its per-(doc, row) maxima and its
 # accumulators, beside the 162 KB of query tile, ring and column bias.
 _SUMS_BUDGET = 64 * 1024
+# The f32 kernel's: 64-token ring tiles through 3 stages (2 tiles of fill),
+# beside its 171 KB of f32 query tile, ring and column bias.
+_F32_BN, _F32_FILL_TILES = 64, 2
+_F32_SUMS_BUDGET = 56 * 1024
 
 
 @dataclass(frozen=True)
 class GridPlan:
-    """The bf16 kernel's grid: block b owns queries [q0, q0 + qpb) of group
+    """A kernel's grid: block b owns queries [q0, q0 + qpb) of group
     b // nslices and docs [d0, d0 + dps) of slice b % nslices."""
 
     nq: int
@@ -87,15 +97,27 @@ class GridPlan:
 
 @functools.lru_cache(maxsize=256)
 def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
-    """Choose queries per block and docs per slice for the bf16 kernel.
+    """Choose queries per block and docs per slice for the bf16 kernel
+    (128-token ring tiles, 4 stages; see :func:`_plan`). Cached: a call is a
+    few thousand candidate plans."""
+    return _plan(nq, tq, nd, td, sms, bn=_BN, fill=_FILL_TILES, budget=_SUMS_BUDGET)
 
-    A block takes the whole queries that fit a 128-row tile; longer queries
+
+@functools.lru_cache(maxsize=256)
+def plan_grid_f32(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
+    """The same search for the f32 kernel's tiles: 128-row query tiles,
+    64-token ring tiles through 3 stages, its own shared-memory budget."""
+    return _plan(nq, tq, nd, td, sms, bn=_F32_BN, fill=_F32_FILL_TILES, budget=_F32_SUMS_BUDGET)
+
+
+def _plan(nq: int, tq: int, nd: int, td: int, sms: int, *, bn: int, fill: int, budget: int) -> GridPlan:
+    """A block takes the whole queries that fit a 128-row tile; longer queries
     go 1, 2 or 4 to a block, their tokens flattened into 128-row tiles. The
     docs are cut into slices. Of these, the plan minimizes the estimated
-    time: whole waves of blocks (one block an SM) times a block's ring tiles,
-    each slice's packed tokens plus the ring's fill, for every row tile. Ties
-    go to fewer queries per block, then fewer slices. Cached: a call is a
-    few thousand candidate plans."""
+    time: whole waves of blocks (one block an SM) times a block's ring tiles
+    of ``bn`` tokens, each slice's packed tokens plus ``fill`` tiles of the
+    ring's fill, for every row tile. Ties go to fewer queries per block, then
+    fewer slices."""
     td8 = -(-td // 8) * 8
     best = None
     for qpb in [max(1, min(nq, _ROWS // tq))] if tq <= _ROWS else [q for q in (1, 2, 4) if q <= max(1, nq)]:
@@ -103,16 +125,16 @@ def plan_grid(nq: int, tq: int, nd: int, td: int, sms: int = 132) -> GridPlan:
         ngroups = -(-nq // qpb)
         # the row maxima and accumulators in shared memory; positions
         # pos * td8 < 2^40 keep the kernel's division by td8 a multiply
-        max_dps = min(nd, _SUMS_BUDGET // (4 * (_ROWS + qpb)))
-        while max_dps > 1 and (max_dps * td8 + _BN) * td8 >= 1 << 40:
+        max_dps = min(nd, budget // (4 * (_ROWS + qpb)))
+        while max_dps > 1 and (max_dps * td8 + bn) * td8 >= 1 << 40:
             max_dps //= 2
-        if (max_dps * td8 + _BN) * td8 >= 1 << 40:
+        if (max_dps * td8 + bn) * td8 >= 1 << 40:
             raise ValueError(f"maxsim kernel takes at most about 2^20 doc tokens, not {td}")
         s_min = -(-nd // max_dps)
         for s in range(s_min, max(s_min, min(nd, 8 * sms)) + 1):
             dps = -(-nd // s)
             blocks = ngroups * -(-nd // dps)
-            cost = -(-blocks // sms) * nrt * (-(-dps * td8 // _BN) + _FILL_TILES)
+            cost = -(-blocks // sms) * nrt * (-(-dps * td8 // bn) + fill)
             if best is None or cost < best[0]:
                 best = (cost, qpb, dps)
     _, qpb, dps = best
@@ -159,7 +181,7 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
     """Launch the kernel: q [NQ, TQ, D], d [ND, TD, D] on the card (both
     bfloat16 or both float32, D a multiple of 8 up to 128); q_mask [NQ, TQ]
     (weights), d_mask [ND, TD] (nonzero = valid). Returns f32 [NQ, ND]."""
-    global launches
+    global launches, f32_launches
     if q.device.type != "cuda" or d.device != q.device:
         raise ValueError(f"maxsim kernel takes CUDA tensors on one device, not {q.device} and {d.device}")
     if q.dtype not in (torch.bfloat16, torch.float32) or d.dtype != q.dtype:
@@ -182,20 +204,21 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
         raise ValueError(f"masks must be [NQ, TQ] = {(nq, tq)} and [ND, TD] = {(nd, td)}")
     if q.data_ptr() % 16 or d.data_ptr() % 16:
         raise ValueError("maxsim kernel needs 16-byte aligned embeddings")
-    plan = (0, 0)  # the f32 kernel plans its own grid
-    if q.dtype == torch.bfloat16:
-        g = plan_grid(nq, tq, nd, td, torch.cuda.get_device_properties(q.device).multi_processor_count)
-        plan = (g.qpb, g.dps)
+    bf16 = q.dtype == torch.bfloat16
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    g = (plan_grid if bf16 else plan_grid_f32)(nq, tq, nd, td, sms)
     fn = build.load("maxsim").maxsim_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     code = fn(
-        1 if q.dtype == torch.bfloat16 else 0, q.data_ptr(), d.data_ptr(),
+        1 if bf16 else 0, q.data_ptr(), d.data_ptr(),
         None if qm is None else qm.data_ptr(), None if dm is None else dm.data_ptr(), out.data_ptr(),
-        nq, tq, nd, td, dim, q.stride(0), q.stride(1), d.stride(0), d.stride(1), *plan,
+        nq, tq, nd, td, dim, q.stride(0), q.stride(1), d.stride(0), d.stride(1), g.qpb, g.dps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "maxsim kernel")
     launches += 1
+    if not bf16:
+        f32_launches += 1
     return out
 
 

@@ -6,7 +6,9 @@ tests/test_attention_pallas.py runs it), in both layouts, with causal and
 key masks, grouped-query heads, a multi-q-block length and fully masked
 rows. Tolerances: 1e-5 in f32 (summation order), 2e-2 in bf16 (one bf16
 rounding of probabilities and outputs). The port's "xla"/"xla_bf16"
-``attention_core`` is held against the JAX one.
+``attention_core`` is held against the JAX one. The f32 kernel's arithmetic
+(3xTF32 products, ``tests/torch_tf32.py``) is held against JAX's f32
+reference at small versions of the f32 paths' shapes.
 """
 
 import jax
@@ -14,8 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_tf32
 
 from multimodal_embedding_tpu.models import layers as jlayers
+from multimodal_embedding_tpu.ops.attention_pallas import _sdpa_reference
 from multimodal_embedding_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
 from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.ops.attention_cuda import fused_attention
@@ -53,6 +57,9 @@ def _inputs(rng, b, h, kvh, tq, tk, dh, layout, masked, dtype):
         (1, 2, 2, 200, 200, 64, False, False, "bhtd"),  # several query blocks
         (2, 4, 4, 37, 37, 64, True, True, "packed"),
         (2, 2, 2, 77, 77, 64, False, False, "packed"),
+        # Qwen3-14B's grouping (40 query heads over 8 KV heads, Dh 128) cut to 10 over 2
+        (2, 10, 2, 24, 24, 128, True, True, "packed"),
+        (1, 10, 2, 40, 40, 128, True, False, "bhtd"),
     ],
 )
 def test_plain_matches_jax_kernel(b, h, kvh, tq, tk, dh, causal, masked, layout, dtype):
@@ -157,3 +164,34 @@ def test_unported_attention_impl_raises(impls):
     assert tlayers.get_attention_impl("cpu") == "flash"
     with pytest.raises(ValueError):
         tlayers.set_attention_impl("nope")
+
+
+# Small versions of the f32 paths' shapes: the small Qwen3's heads (8 over 4,
+# Dh 64), Qwen3-14B's grouping cut to 10 over 2 (Dh 128), one KV head at Dh
+# 256 (the small Gemma's head dim); causal with left padding, the last
+# sequence mostly padding (its pad query rows fully masked)
+F32_EMULATION_SHAPES = [(2, 8, 4, 96, 64), (2, 10, 2, 80, 128), (2, 2, 1, 48, 256)]
+
+
+@pytest.mark.parametrize("rounding", ["rne", "kernel"])
+@pytest.mark.parametrize("b,h,kvh,t,dh", F32_EMULATION_SHAPES)
+def test_3xtf32_emulation_holds_jax_reference(rounding, b, h, kvh, t, dh):
+    """The f32 kernel's products, 3xTF32 emulated in numpy under round to
+    nearest even and under the kernel's own rounding, through the attention
+    core hold JAX's f32 ``_sdpa_reference`` within max|d|/max|plain| 3e-6, a
+    margin under the card's 1e-5 gate; one TF32 pass does not hold 1e-5."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((b, h, t, dh), dtype=np.float32)
+    k, v = (rng.standard_normal((b, kvh, t, dh), dtype=np.float32) for _ in range(2))
+    lengths = rng.integers(3, t + 1, size=b)
+    lengths[-1] = t // 3
+    km = (np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)
+    scale = dh ** -0.5
+    want = np.asarray(_sdpa_reference(*(jnp.asarray(x) for x in (q, k, v, km)), causal=True, sm_scale=scale))
+
+    def rel(passes):
+        got = torch_tf32.attention(q, k, v, km, causal=True, scale=scale, rounding=rounding, passes=passes)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    assert rel(3) <= 3e-6
+    assert rel(1) > 1e-5

@@ -6,7 +6,9 @@ a fixture, at run time). Run them on the card with
     python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances as in chip_smoke.py: attention 1e-5 in f32 and 2e-2 in bf16
-against the plain version in f32 on the same inputs; preprocess at least
+against the plain version in f32 on the same inputs (the f32 kernel's own
+cases also 1e-5 for max|d|/max|plain| and mean|d|/mean|plain|: a long key
+row, Qwen3-14B's groups of 5 at Dh 128, fully masked rows); preprocess at least
 99.9% bit-equal and within one quantization level; MaxSim max|d|/max|plain|
 at most 1e-5 in f32 and 1e-4 in bf16 (bf16 products are exact in f32, so
 only the order of the f32 sums differs), and two calls bit-equal; the prologue's x_new bit-equal to
@@ -166,6 +168,73 @@ def test_attention_bf16_takes_a_long_key_row(dev):
     _assert_bf16_attention_close(got, want)
 
 
+def _assert_f32_attention_close(got, want):
+    """chip_smoke.py's f32 attention limits: 1e-5 absolute, and 1e-5 for
+    max|d|/max|plain| and mean|d|/mean|plain|."""
+    d = (got - want).abs()
+    assert got.dtype == torch.float32
+    assert float(d.max()) <= 1e-5
+    assert float(d.max()) / float(want.abs().max()) <= 1e-5
+    assert float(d.mean()) / float(want.abs().mean()) <= 1e-5
+
+
+def test_attention_f32_takes_a_long_key_row(dev):
+    """4096 keys: the f32 kernel keeps its logits in registers, so no key
+    row length is refused."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 4096, 64), dtype=np.float32)).to(dev) for _ in range(3))
+    before = attention_cuda.f32_launches
+    got = attention_cuda.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention_cuda.f32_launches == before + 1
+    _assert_f32_attention_close(got, attention_cuda._plain(q, k, v, None, False, 0.125, "bhtd", 2, 2))
+
+
+@pytest.mark.parametrize("layout", ["packed", "bhtd"])
+def test_attention_f32_gqa_groups_of_5_at_dh_128(dev, layout):
+    """Qwen3-14B's grouping cut to 10 query heads over 2 KV heads, Dh 128,
+    causal and left-padded (a prefill): every pad query row is fully masked
+    and exact zeros."""
+    rng = np.random.default_rng(16)
+    b, h, kvh, t, dh = 3, 10, 2, 100, 128
+    shapes = ([(b, t, h * dh), (b, t, kvh * dh), (b, t, kvh * dh)] if layout == "packed"
+              else [(b, h, t, dh), (b, kvh, t, dh), (b, kvh, t, dh)])
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev) for s in shapes)
+    lengths = np.array([t, 37, 1])
+    km = torch.from_numpy((np.arange(t)[None, :] >= t - lengths[:, None]).astype(np.int32)).to(dev)
+    kw = dict(causal=True, layout=layout, num_heads=h, num_kv_heads=kvh)
+    got = attention_cuda.fused_attention(q, k, v, km, **kw)
+    want = attention_cuda._plain(q, k, v, km, True, dh ** -0.5, layout, h, kvh)
+    _assert_f32_attention_close(got, want)
+    o4 = got if layout == "bhtd" else got.reshape(b, t, h, dh).transpose(1, 2)
+    for i, n in enumerate(lengths):
+        assert bool((o4[i, :, : t - n] == 0).all())
+
+
+@pytest.mark.parametrize("layout,h,kvh,t,dh", [
+    ("packed", 4, 4, 77, 64),
+    ("bhtd", 4, 2, 100, 72),
+    ("packed", 8, 1, 65, 256),
+])
+def test_attention_f32_fully_masked_rows_are_exact_zeros(dev, layout, h, kvh, t, dh):
+    rng = np.random.default_rng(17)
+    b = 3
+    shapes = ([(b, t, h * dh), (b, t, kvh * dh), (b, t, kvh * dh)] if layout == "packed"
+              else [(b, h, t, dh), (b, kvh, t, dh), (b, kvh, t, dh)])
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev) for s in shapes)
+    km_np = (np.arange(t)[None, :] < np.array([[t], [t // 2], [t]])).astype(np.int32)
+    km_np[0, 0] = 0  # causal: query row 0 of sequence 0 sees no valid key
+    km_np[2] = 0  # every row of sequence 2 is fully masked
+    km = torch.from_numpy(km_np).to(dev)
+    kw = dict(causal=True, layout=layout, num_heads=h, num_kv_heads=kvh)
+    got = attention_cuda.fused_attention(q, k, v, km, **kw)
+    want = attention_cuda._plain(q, k, v, km, True, dh ** -0.5, layout, h, kvh)
+    o4 = got if layout == "bhtd" else got.reshape(b, t, h, dh).transpose(1, 2)
+    assert bool((o4[2] == 0).all())
+    assert bool((o4[0, :, 0] == 0).all())
+    _assert_f32_attention_close(got, want)
+
+
 def test_attention_gradient_recomputes_through_plain_version(dev):
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 33, 128), dtype=np.float32)).to(dev) for _ in range(3))
@@ -280,6 +349,24 @@ def test_maxsim_kernel_is_deterministic(dev, dtype):
     b = maxsim_cuda.maxsim_cuda(q, d, qm, dm)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+def test_maxsim_f32_kernel_at_a_cut_of_the_search_shape(dev):
+    """A search's shape cut to 8 queries of 32 tokens against 512 docs of
+    1030 tokens (unit-norm f32, as encode_cli writes): each doc packed
+    across 64-token ring tiles (td8 1032), one launch of the f32 kernel,
+    within max|d|/max|plain| 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(8, 32, 128, generator=g, device=dev)
+    d = torch.randn(512, 1030, 128, generator=g, device=dev)
+    q, d = q / q.norm(dim=-1, keepdim=True), d / d.norm(dim=-1, keepdim=True)
+    before, before_f32 = maxsim_cuda.launches, maxsim_cuda.f32_launches
+    got = maxsim_cuda.maxsim_scores(q, d)
+    torch.cuda.synchronize()
+    assert (maxsim_cuda.launches, maxsim_cuda.f32_launches) == (before + 1, before_f32 + 1)
+    want = maxsim_cuda.maxsim_scores_ref(q, d)
+    assert got.shape == (8, 512) and bool(got.isfinite().all())
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_maxsim_wrapper_raises_on_what_the_kernel_does_not_take(dev):

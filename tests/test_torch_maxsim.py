@@ -9,6 +9,9 @@ query-token chunking. Inputs are made with numpy; masks and shapes that are
 not multiples of any block; f32 and bf16 embeddings. Tolerance: max|d| at
 most 1e-5 of max|want| (f32 sums in another order; bf16 products are exact
 in f32). A doc with no valid token scores sums of -1e30 in both packages.
+The kernels' grid plans and tile walks are replayed in numpy, and the f32
+kernel's 3xTF32 products (``tests/torch_tf32.py``) are held against the JAX
+kernel in f32.
 """
 
 import jax
@@ -16,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_tf32
 
 import multimodal_embedding_tpu.ops.maxsim as jmaxsim
 from multimodal_embedding_tpu_torch.ops import maxsim_cuda
@@ -172,12 +176,14 @@ def test_grid_plan_fills_the_card_at_the_colpali_shapes():
     assert len(tiles) * 128 <= 1088 * i2t.qpb
 
 
-def _emulate_bf16_kernel(q, d, qm, dm, plan):
-    """numpy replay of csrc/maxsim.cu:wgmma_kernel's index arithmetic: the
+def _emulate_kernel(q, d, qm, dm, plan, bn=128, sim_fn=None):
+    """numpy replay of the index arithmetic of csrc/maxsim.cu's kernels
+    (wgmma_kernel: ring tiles of ``bn`` 128 tokens; tf32x3_kernel: 64): the
     packed doc tokens (td8 a doc, the division by td8 as a multiply), the
     running max per 8-column group with its flush at each doc's last group
     into per-(doc, row) values, and their per-(query, doc) sums over each row
-    tile. The similarities come from numpy in f64."""
+    tile of 128 rows. The similarities come from ``sim_fn(rows, tokens)``,
+    numpy in f64 by default."""
     nq, tq, _ = q.shape
     nd, td, _ = d.shape
     td8 = plan.td8
@@ -186,7 +192,7 @@ def _emulate_bf16_kernel(q, d, qm, dm, plan):
     for qs, ds in plan.blocks():
         q0, d0, ndocs = qs.start, ds.start, len(ds)
         nrows, total = len(qs) * tq, ndocs * td8
-        ncols = -(-total // 128) * 128
+        ncols = -(-total // bn) * bn
         pos = np.arange(ncols)
         doc = (pos * inv) >> 40
         s = pos - doc * td8
@@ -200,7 +206,8 @@ def _emulate_bf16_kernel(q, d, qm, dm, plan):
             ql = np.where(lr < nrows, lr // tq, -1)
             qrows = np.where((lr < nrows)[:, None], q[q0 + np.maximum(ql, 0), np.minimum(lr, nrows - 1) % tq], 0)
             w = np.where(lr < nrows, qm[q0 + np.maximum(ql, 0), np.minimum(lr, nrows - 1) % tq], 0).astype(np.float32)
-            sim = np.where(valid[None, :], qrows @ dtok.T, -1e30).astype(np.float32)
+            prod = qrows @ dtok.T if sim_fn is None else sim_fn(qrows, dtok)
+            sim = np.where(valid[None, :], prod, -1e30).astype(np.float32)
             rv = np.zeros((ndocs, 128), np.float32)
             m = np.full(128, -1e30, np.float32)
             cur = 0
@@ -208,11 +215,11 @@ def _emulate_bf16_kernel(q, d, qm, dm, plan):
             def flush(cur, m):
                 rv[cur] = w * m
 
-            for t in range(ncols // 128):
-                p = t * 128
+            for t in range(ncols // bn):
+                p = t * bn
                 dcur = (p * inv) >> 40
                 off = p - dcur * td8
-                for g in range(16):
+                for g in range(bn // 8):
                     if p >= total:
                         break
                     if dcur != cur:
@@ -241,8 +248,83 @@ def test_bf16_kernel_index_arithmetic_matches_plain(nq, tq, nd, td, masked, empt
     (_, _, _, _), (q, d, qm, dm) = _problem(6, nq, tq, nd, td, 8, "float32", masked, empty_doc)
     want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm).numpy()
     plan = maxsim_cuda.plan_grid(nq, tq, nd, td, sms=8)  # several slices and groups
-    got = _emulate_bf16_kernel(q.numpy(), d.numpy(), qm.numpy(), dm.numpy(), plan)
+    got = _emulate_kernel(q.numpy(), d.numpy(), qm.numpy(), dm.numpy(), plan)
     if empty_doc:
         np.testing.assert_allclose(got[:, nd // 2], want[:, nd // 2], rtol=1e-6)
         got, want = np.delete(got, nd // 2, 1), np.delete(want, nd // 2, 1)
     assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
+# --- the f32 kernel: its plan, its tile walk, its 3xTF32 products ---------------------
+
+SEARCH_SHAPE = (64, 32, 5000, 1030)  # 64 queries of 32 tokens against a COCO-5k-sized ColPali index
+
+
+@pytest.mark.parametrize("nq,tq,nd,td", PLAN_SHAPES + [SEARCH_SHAPE])
+def test_f32_grid_plan_covers_every_pair_once(nq, tq, nd, td):
+    plan = maxsim_cuda.plan_grid_f32(nq, tq, nd, td)
+    seen = np.zeros((nq, nd), int)
+    for qs, ds in plan.blocks():
+        assert 0 < len(qs) <= plan.qpb and 0 < len(ds) <= plan.dps
+        seen[qs.start : qs.stop, ds.start : ds.stop] += 1
+    assert (seen == 1).all()
+    assert 4 * plan.dps * (128 + plan.qpb) <= maxsim_cuda._F32_SUMS_BUDGET
+    assert (plan.dps * plan.td8 + 64) * plan.td8 < 1 << 40
+    assert plan.nblocks < 1 << 31  # a one-dimensional grid
+
+
+def test_f32_grid_plan_fills_the_card_at_the_search_shape():
+    plan = maxsim_cuda.plan_grid_f32(*SEARCH_SHAPE)
+    assert plan.qpb == 4 and plan.nblocks % 132 == 0  # 4 queries a row tile, whole waves on 132 SMs
+
+
+@pytest.mark.parametrize("nq,tq,nd,td,masked,empty_doc", [
+    (9, 32, 5, 260, False, False),  # docs crossing 64-token ring tiles
+    (2, 32, 6, 1030, False, False),  # search-like: a doc over 17 ring tiles, most inside one doc
+    (3, 150, 21, 32, False, False),  # a query over two row tiles, 2 docs a ring tile
+    (7, 13, 9, 19, True, True),  # TD not a multiple of 8, masks, a doc with no valid token
+    (4, 5, 40, 7, True, False),  # 8 docs a ring tile
+])
+def test_f32_kernel_tile_walk_matches_plain(nq, tq, nd, td, masked, empty_doc):
+    """csrc/maxsim.cu:tf32x3_kernel replayed: plan_grid_f32's blocks, 64-token
+    ring tiles of packed docs, 8 group maxima a tile, the fixed-order sums,
+    and the similarities as the kernel's 3xTF32 products."""
+    (_, _, _, _), (q, d, qm, dm) = _problem(7, nq, tq, nd, td, 16, "float32", masked, empty_doc)
+    want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm).numpy()
+    plan = maxsim_cuda.plan_grid_f32(nq, tq, nd, td, sms=8)  # several slices and groups
+    assert plan.nblocks > 1
+    got = _emulate_kernel(q.numpy(), d.numpy(), qm.numpy(), dm.numpy(), plan, bn=64,
+                          sim_fn=lambda a, b: torch_tf32.matmul(a.astype(np.float32), b.T, "kernel"))
+    if empty_doc:
+        np.testing.assert_allclose(got[:, nd // 2], want[:, nd // 2], rtol=1e-6)
+        got, want = np.delete(got, nd // 2, 1), np.delete(want, nd // 2, 1)
+    assert np.abs(got - want).max() <= REL_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("rounding", ["rne", "kernel"])
+@pytest.mark.parametrize("nq,tq,nd,td,masked", [(4, 32, 16, 100, True), (3, 45, 7, 75, False)])
+def test_3xtf32_emulation_holds_jax_kernel(rounding, nq, tq, nd, td, masked):
+    """The f32 kernel's products, 3xTF32 emulated in numpy (round to nearest
+    even, and the kernel's own rounding), hold the JAX Pallas kernel in f32
+    within max|d|/max|want| 3e-6, a margin under the card's 1e-5 gate, at D
+    128 on unit-norm token embeddings (ColPali's); one TF32 pass does not
+    hold 1e-5."""
+    rng = np.random.default_rng(8)
+    q = rng.standard_normal((nq, tq, 128), dtype=np.float32)
+    d = rng.standard_normal((nd, td, 128), dtype=np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    qm, dm = np.ones((nq, tq), np.float32), np.ones((nd, td), bool)
+    if masked:
+        qm = (rng.random((nq, tq)) > 0.2).astype(np.float32)
+        dm = rng.random((nd, td)) > 0.25
+        dm[:, 0] = True
+    want = np.asarray(jmaxsim._maxsim_pallas(jnp.asarray(q), jnp.asarray(qm), jnp.asarray(d), jnp.asarray(dm),
+                                             block_q=4, block_d=4, token_tile=8, interpret=True))
+
+    def rel(passes):
+        got = torch_tf32.maxsim(q, d, qm, dm, rounding=rounding, passes=passes)
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    assert rel(3) <= 3e-6
+    assert rel(1) > 1e-5
