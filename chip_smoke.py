@@ -30,7 +30,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
      ``[64,577,3072]``, and MaxSim on a search-sized f32 index, 64 queries of
      32 tokens against ``[5000,1030,128]``, checked on its first 4 queries;
      each f32 case also prints its 3xTF32 bound, its TFLOP/s and SDPA's
-     device time),
+     device time; and phase 13's ``entry()`` shapes, ViT-L ``[8,577,16x64]``
+     and the b8 480x640 preprocess),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -154,7 +155,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
      f32 weights, on half the group a rank (cosine >= 0.99999, loss within
      1e-4; the same in bf16 reported beside it), each side's adapters
      bit-equal across the ranks after AdamW;
-     finally ``dryrun_multichip(2)`` on the card. Two processes time-slice
+     finally ``dryrun_multichip(2)`` on the card (rank 0's launches: 28 f32
+     attention, 2 f32 MaxSim, 4 preprocess). Two processes time-slice
      one card with collectives through host memory: not a scaling figure.
  12. the f32 kernels' paths at full width: ``retrieval/search.Index`` on a
      COCO-5k-sized f32 ColPali index (seeded, token-normalized embeddings
@@ -168,12 +170,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
      path (hidden states at valid positions and first-token logits per-row
      cosine >= 0.99999, greedy tokens equal, 4 launches in each prefill and
      none while decoding), the prefill's ms.
+ 13. the contract's forward step: ``entry()`` with no arguments (full-width
+     OpenAI-CLIP-L in bf16, its 8 example images of 480x640 on the card),
+     ``fn(*args)`` once with its launches counted (1 preprocess, 24
+     attention, no other) and 10 times under CUDA events: ``ms``,
+     ``device_ms``, img/s, peak device memory; its embeddings against the
+     plain preprocess and the ``xla`` attention on the same weights in f32,
+     per-image cosine >= 0.9999.
 
 The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``--attention-impl flash`` route, runs the attention kernel: its numbers are
 ``fused_attention``'s ViT-L case, its launches phase 7's flash run;
 ``fused_attention_f32`` and ``maxsim_f32`` are the f32 bodies of the two
-sources, counted apart, their launches phase 12's), the
+sources, their launches phase 12's; ``ops.launch_counts`` counts each launch
+under one name), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
 and numpy.
 """
@@ -846,6 +856,9 @@ def attention_cases() -> list[tuple[str, dict]]:
         ("qwen3-14b rollout prefill tp2 shard packed gqa causal+mask, left-padded", dict(
             b=8, h=20, kvh=4, t=224, dh=128, dtype=torch.bfloat16, causal=True, masked=True, layout="packed",
             full_mask_rows=True, left_padded=True)),
+        # entry()'s forward step (phase 13): ViT-L over its 8 example images
+        ("vit-l b8 packed, entry()", dict(b=8, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                                          layout="packed", full_mask_rows=False)),
     ]
 
 
@@ -920,6 +933,7 @@ def preprocess_cases() -> list[tuple[str, dict]]:
     for model, recipe, size in (("LAION-CLIP-H", "shortest_edge", 224), ("Apple-DFN5B-H", "shortest_edge", 378),
                                 ("SigLIP-400M", "exact", 384), ("Jina-CLIP-v1", "exact bicubic", 224)):
         cases.append((f"{model} {recipe} 480x640->{size}", dict(h=480, w=640, b=32, model=model)))
+    cases.append(("OpenAI-CLIP-L shortest_edge 480x640->336 b8, entry()", dict(h=480, w=640, b=8)))
     return cases
 
 
@@ -1044,22 +1058,6 @@ def _headline(case: dict) -> dict:
 # --- phase 3 -------------------------------------------------------------------
 
 
-def _counters() -> dict:
-    """Kernel name -> (module, attribute) of its plain launch count."""
-    from multimodal_embedding_tpu_torch.ops import (
-        attention_cuda,
-        fused_ln_matmul_cuda,
-        layernorm_cuda,
-        maxsim_cuda,
-        preprocess_cuda,
-    )
-
-    return {"fused_attention": (attention_cuda, "launches"), "preprocess": (preprocess_cuda, "launches"),
-            "maxsim": (maxsim_cuda, "launches"), "fused_res_norm_matmul": (fused_ln_matmul_cuda, "launches"),
-            "fused_attention_qkv": (attention_cuda, "qkv_launches"), "fused_layer_norm": (layernorm_cuda, "launches"),
-            "fused_attention_f32": (attention_cuda, "f32_launches"), "maxsim_f32": (maxsim_cuda, "f32_launches")}
-
-
 def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
     """Run the port's CLI in-process. For each model it runs, every launch
     count is set to 0 just before its benchmark and read just after, and
@@ -1073,8 +1071,8 @@ def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
     import torch
 
     from multimodal_embedding_tpu_torch.cli import main as cli
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    counters = _counters()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     out = OUT_DIR / csv_name
     out.unlink(missing_ok=True)
@@ -1086,12 +1084,11 @@ def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
         return load(info, *a, **kw)
 
     def benchmarking(*a, **kw):
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        reset_launch_counts()
         try:
             return bench(*a, **kw)
         finally:
-            runs[-1]["counts"] = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+            runs[-1]["counts"] = launch_counts()
             runs[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
 
     def recording(*a, **kw):  # reads the matrices after the timed encode
@@ -1693,13 +1690,13 @@ def phase_workload_a(kernels: list[dict]) -> None:
     from multimodal_embedding_tpu_torch.cli import analyze, encode_cli, multi_seed, probe
     from multimodal_embedding_tpu_torch.cli import search as search_cli
     from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
     from multimodal_embedding_tpu_torch.ops.maxsim_cuda import maxsim_scores_ref
     from multimodal_embedding_tpu_torch.retrieval import search as search_mod
 
     dev = torch.device("cuda")
     card = card_line()
     t_phase = time.perf_counter()
-    counters = _counters()
     dense = lambda m: ("fused_attention", "preprocess")  # noqa: E731
     paths: dict[str, dict] = {}
 
@@ -1750,14 +1747,13 @@ def phase_workload_a(kernels: list[dict]) -> None:
         scored.extend((tuple(x.shape), bool(x.isfinite().all())) for x in s)
         return s
 
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     multi_seed._scores = recording
     try:
         rc = multi_seed.main([*MULTI_SEED_ARGS, "--output", str(out)])
     finally:
         multi_seed._scores = scores
-    v28_counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    v28_counts = launch_counts()
     require(rc == 0, f"multi_seed exited {rc}")
     for n in ("fused_attention", "preprocess", "maxsim"):
         require(v28_counts[n] > 0, f"kernel {n} was not launched by multi_seed: {v28_counts}")
@@ -1787,19 +1783,18 @@ def phase_workload_a(kernels: list[dict]) -> None:
         searched.append((self, queries, query_mask, ids, top))
         return ids, top
 
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     search_mod.Index.search = recording_search
     try:
         rc = search_cli.main(["--index", str(index_path), "--model", "ColPali-v1.3", "--arch-models", "--k", "10",
                               *[a for q in SEARCH_QUERIES for a in ("--query", q)]])
     finally:
         search_mod.Index.search = search
-    search_counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    search_counts = launch_counts()
     require(rc == 0 and len(searched) == 1, f"search exited {rc} after {len(searched)} searches")
     index, queries, qmask, ids, top = searched[0]
     require(index.multi_vector and index.embeddings.dtype == torch.float32, "the ColPali index is not f32 multi-vector")
-    require(search_counts["maxsim"] > 0, f"the index search did not launch the MaxSim kernel: {search_counts}")
+    require(search_counts["maxsim_f32"] > 0, f"the index search did not launch the f32 MaxSim kernel: {search_counts}")
     plain = maxsim_scores_ref(queries.float(), index.embeddings, q_mask=qmask)
     plain_top, plain_idx = torch.sort(plain, dim=1, descending=True, stable=True)
     plain_ids = index.ids[plain_idx[:, :10].cpu().numpy()]
@@ -2078,21 +2073,20 @@ def _verify_cli(arch: str, adapters_path: Path, base_params: Path | None = None)
     import io
 
     from multimodal_embedding_tpu_torch.cli import verify_rl
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    counters = _counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = verify_rl.main(["--arch", arch, *VERIFY_CLI_ARGS, "--adapters", str(adapters_path),
                              *(["--base-params", str(base_params)] if base_params else [])])
-    counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    counts = launch_counts()
     text = buf.getvalue()
     require(rc == 0, f"verify_rl --arch {arch} exited {rc}: {text[-2000:]}")
     stats = ast.literal_eval(text.strip().splitlines()[-1])
     for k in ("no_think_rate", "clean_json_rate", "accuracy"):
         require(0.0 <= stats[k] <= 100.0, f"verify_rl --arch {arch} {k} = {stats[k]}")
-    require(stats["n"] == 16 and counts["fused_attention"] > 0, f"verify_rl --arch {arch}: {stats}, {counts}")
+    require(stats["n"] == 16 and counts["fused_attention_f32"] > 0, f"verify_rl --arch {arch}: {stats}, {counts}")
     return stats, counts
 
 
@@ -2312,17 +2306,16 @@ def _train_then_verify_cli(arch: str) -> dict:
     and adapters it saved: the training stats, the verify stats line and each
     CLI's launch counts."""
     from multimodal_embedding_tpu_torch.cli import train_rl
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    counters = _counters()
     out_dir = OUT_DIR / f"train_rl_{arch}"
     base = out_dir / "base.npz"
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     rc = train_rl.main(["--arch", arch, *TRAIN_CLI_ARGS, "--save-base", str(base), "--output-dir", str(out_dir)])
     train_s = time.perf_counter() - t0
-    counts = {"train_rl": {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}}
-    require(rc == 0 and counts["train_rl"]["fused_attention"] > 0, f"train_rl --arch {arch}: rc {rc}, {counts}")
+    counts = {"train_rl": launch_counts()}
+    require(rc == 0 and counts["train_rl"]["fused_attention_f32"] > 0, f"train_rl --arch {arch}: rc {rc}, {counts}")
     with np.load(out_dir / "training_stats.npz") as data:
         stats = {k: data[k].tolist() for k in data.files}
     require(sorted(stats) == ["adv_std", "kl", "loss", "mean_reward", "parse_rate"]
@@ -2433,8 +2426,8 @@ def _rank_cli(tag: str, flags: list[str], out: Path, ref: dict, report: dict) ->
     import torch
 
     from multimodal_embedding_tpu_torch.cli import main as cli
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    counters = _counters()
     rec = _Recorder()
     boot_checks = []
     real_boot = cli.bootstrap_benchmark
@@ -2449,13 +2442,12 @@ def _rank_cli(tag: str, flags: list[str], out: Path, ref: dict, report: dict) ->
 
     cli.bootstrap_benchmark = boot
     torch.cuda.reset_peak_memory_stats()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     try:
         rc = cli.main([*PARALLEL_CLI_ARGS, *flags, "--output", str(out / f"{tag}.csv")])
     finally:
-        counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+        counts = launch_counts()
         cli.bootstrap_benchmark = real_boot
         rec.close()
     require(rc == 0, f"{tag}: CLI exited {rc}")
@@ -2478,6 +2470,7 @@ def _rank_colpali_sp(dev, report: dict) -> None:
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
     from multimodal_embedding_tpu_torch.models.registry import model_info
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
     from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh
     from multimodal_embedding_tpu_torch.retrieval.scoring import late_interaction_scores
 
@@ -2487,10 +2480,8 @@ def _rank_colpali_sp(dev, report: dict) -> None:
     mesh = get_mesh(n_model=PARALLEL_RANKS)
     engine = EncodingEngine(model, 4, device=dev, mesh=mesh)
     alone_img, alone_txt = engine.encode_images(images).embeddings, engine.encode_texts(queries)
-    counters = _counters()
     torch.cuda.reset_peak_memory_stats()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     layers.set_sp_mesh(mesh)
     try:
@@ -2499,7 +2490,7 @@ def _rank_colpali_sp(dev, report: dict) -> None:
     finally:
         layers.set_sp_mesh(None)
     torch.cuda.synchronize()
-    counts = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    counts = launch_counts()
     valid = txt.mask.bool()
     cos = torch.cat([_cosines(img.flatten(0, 1), alone_img.flatten(0, 1)),
                      _cosines(txt.embeddings[valid], alone_txt.embeddings[valid])])
@@ -2615,6 +2606,9 @@ def phase_parallel(kernels: list[dict]) -> None:
 
 TP_GRPO_RANKS = 2
 TP_GRPO_TIMEOUT_S = 600
+# rank 0's launches in dryrun_multichip(2): its debug models run in f32, so
+# every attention and MaxSim launch is the f32 body's
+DRYRUN_LAUNCHES = {"fused_attention": 0, "fused_attention_f32": 28, "preprocess": 4, "maxsim": 0, "maxsim_f32": 2}
 # tensor parallelism 2 against one rank, the 4-layer cut in bf16: each
 # adapter gradient's cosine, loss, pg and kl, and the greedy rollout's tokens
 # position by position, each fed one rank's tokens before it (bf16 sums in
@@ -2909,6 +2903,7 @@ def phase_tp_grpo(kernels: list[dict]) -> None:
     dry = dryrun_multichip(TP_GRPO_RANKS)
     dry_s = time.perf_counter() - t1
     require(dry["device"] == "cuda:0" and all(math.isfinite(dry[k]) for k in ("loss", "qwen3_loss")), f"dryrun {dry}")
+    require(dry["launches"] == DRYRUN_LAUNCHES, f"dryrun launches {dry['launches']}, want {DRYRUN_LAUNCHES}")
     step = {k: reports[0]["tp2 qwen3-14b"][k] for k in ("build_s", "train_s", "per_prompt")}
     print(f"[tp_grpo] two processes time-slicing one card, collectives through host memory (gloo): not a scaling "
           f"figure; the 40-layer TP 2 step {json.dumps(step)}, "
@@ -2937,11 +2932,11 @@ F32_COSINE_MIN = 0.99999  # the f32 attention kernel against the plain path, bot
 def _count_launches(fn):
     """(fn(), every launch count over the call): each count set to 0 just
     before and read just after."""
-    counters = _counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
     out = fn()
-    return out, {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    return out, launch_counts()
 
 
 def _f32_index_search(dev) -> dict:
@@ -2969,7 +2964,7 @@ def _f32_index_search(dev) -> dict:
         (ids, top), counts = _count_launches(lambda: index.search(queries, k=10))
         seconds.append(time.perf_counter() - t0)  # search returns host arrays: synchronized
         results.append((ids, top))
-    require(counts["maxsim_f32"] == counts["maxsim"] == 1, f"the f32 index search launched {counts}")
+    require(counts["maxsim_f32"] == 1 and counts["maxsim"] == 0, f"the f32 index search launched {counts}")
     require(np.array_equal(results[0][0], results[1][0]) and np.array_equal(results[0][1], results[1][1]),
             "two searches of the same index gave different answers")
     nc = 4
@@ -3039,7 +3034,7 @@ def _qwen3_f32_generate(dev) -> dict:
     require(k["prefill_counts"]["fused_attention_f32"] == k["counts"]["fused_attention_f32"] == L,
             f"f32 Qwen3 launches: prefill {k['prefill_counts']}, generate {k['counts']} (want {L} each, the "
             f"generate's all in its prefill)")
-    require(p["prefill_counts"]["fused_attention"] == p["counts"]["fused_attention"] == 0,
+    require(p["prefill_counts"]["fused_attention_f32"] == p["counts"]["fused_attention_f32"] == 0,
             "the plain attention path launched the attention kernel")
     cos_h, cos_l = _cosines(k["hidden"], p["hidden"]), _cosines(k["first"], p["first"])
     equal = float((k["toks"] == p["toks"]).float().mean())
@@ -3084,6 +3079,74 @@ def phase_f32_paths(kernels: list[dict]) -> None:
     print(f"[phase12] {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 13: the contract's forward step -------------------------------------------
+
+# per-image cosine of entry()'s bf16 kernel path against the plain path on the
+# same weights in f32: phase 5's CLIP-L CLS embeddings read >= 0.99993
+ENTRY_COSINE_MIN = 0.9999
+ENTRY_LAUNCHES = {"preprocess": 1, "fused_attention": 24}  # a call: one preprocess, one a ViT-L layer
+
+
+def phase_entry(kernels: list[dict]) -> None:
+    """Phase 13: ``entry()`` with no arguments, then ``fn(*args)`` once
+    (its launches counted) and 10 times under CUDA events; the embeddings
+    against the plain path (plain preprocess, ``xla`` attention) on the same
+    weights cast to f32."""
+    import copy
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.entry import IMAGE_H, IMAGE_W, entry
+    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch.models.registry import model_info
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
+    from multimodal_embedding_tpu_torch.ops.preprocess import make_preprocess_fn
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn, args = entry()
+    model, images = args
+    require(images.is_cuda and images.dtype == torch.uint8 and tuple(images.shape) == (8, 3, IMAGE_H, IMAGE_W),
+            f"entry() images {images.dtype} {tuple(images.shape)} on {images.device}")
+    reset_launch_counts()
+    emb = fn(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {n: ENTRY_LAUNCHES.get(n, 0) for n in counts}
+    require(counts == want, f"entry() launches a call {counts}, want {want}")
+    dim = model.cfg.vision.proj_dim
+    norms = emb.norm(dim=-1)
+    require(tuple(emb.shape) == (8, dim) and emb.dtype == torch.float32 and bool(emb.isfinite().all())
+            and float((norms - 1).abs().max()) < 1e-5, f"entry() output {emb.dtype} {tuple(emb.shape)}, norms {norms}")
+    ms = cuda_time_ms(lambda: fn(*args), iters=10, warmup=0)
+    dev_ms = device_ms(lambda: fn(*args))
+    peak = torch.cuda.max_memory_allocated()
+
+    model32 = copy.deepcopy(model).float()
+    plain_pre = make_preprocess_fn(model_info("OpenAI-CLIP-L").preprocess, IMAGE_H, IMAGE_W, device="cuda",
+                                   input_format="nchw")
+    layers.set_attention_impl("xla")
+    try:
+        with torch.inference_mode():
+            plain = layers.l2_normalize(model32.encode_image(plain_pre(images)))
+    finally:
+        layers.set_attention_impl("auto")
+    cos = torch.nn.functional.cosine_similarity(emb, plain, dim=-1)
+    out = {"batch": 8, "image": [IMAGE_H, IMAGE_W], "embedding": [8, dim], "ms": ms, "device_ms": dev_ms,
+           "img_per_s": 8e3 / ms, "peak_memory_bytes": peak, "launches_per_call": counts,
+           "cosine_vs_plain_f32": [round(float(c), 6) for c in cos]}
+    print(f"[entry] {json.dumps(out)}; card {card_line()}")
+    require(bool((cos >= ENTRY_COSINE_MIN).all()), f"entry() cosine {float(cos.min())} < {ENTRY_COSINE_MIN}")
+    for k in kernels:
+        k["launches_by_path"]["entry()"] = counts.get(k["name"], 0)
+    del fn, args, model, images, model32
+    torch.cuda.empty_cache()
+    print(f"[phase13] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3122,6 +3185,7 @@ def main() -> int:
     phase_parallel(kernels)
     phase_tp_grpo(kernels)
     phase_f32_paths(kernels)
+    phase_entry(kernels)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -49,9 +49,10 @@ _RANK_MAIN = "import sys; from multimodal_embedding_tpu_torch.dryrun import run_
 def dryrun_multichip(n_ranks: int, device: str = "cuda") -> dict:
     """Run the sequence on ``n_ranks`` gloo ranks and print rank 0's summary
     line; returns rank 0's results (the line, the two GRPO losses, its
-    device and its kernel launches). Raises
-    where a rank fails or outlasts ``RANK_TIMEOUT_S``; a CUDA ``device``
-    without a card raises too (no fall-back to the CPU)."""
+    device and its kernel launches: attention, preprocess and MaxSim, the
+    f32 bodies under their own names). Raises where a rank fails or outlasts
+    ``RANK_TIMEOUT_S``; a CUDA ``device`` without a card raises too (no
+    fall-back to the CPU)."""
     import torch
 
     if device != "cpu" and not torch.cuda.is_available():
@@ -248,10 +249,11 @@ def _sequence(n: int, dev) -> dict:
     line = (f"dryrun_multichip({n}): mesh={mesh.shape}, scores {tuple(s_t2i.shape)}/{tuple(s_i2t.shape)}, "
             f"maxsim {tuple(s_mv.shape)}, bootstrap ok, tp mesh={tp_mesh.shape} encode ok, sp attention ok, "
             f"grpo train step loss={loss:.4f} ok, qwen3 grpo train step loss={q_loss:.4f} ok")
-    from .ops import attention_cuda, maxsim_cuda, preprocess_cuda
+    from .ops import launch_counts
 
-    launches = {"fused_attention": attention_cuda.launches, "preprocess": preprocess_cuda.launches,
-                "maxsim": maxsim_cuda.launches}  # this rank's, over the whole sequence
+    counts = launch_counts()  # this rank's, over the whole sequence
+    launches = {k: counts[k] for k in ("fused_attention", "fused_attention_f32", "preprocess", "maxsim",
+                                       "maxsim_f32")}
     return {"line": line, "loss": loss, "qwen3_loss": q_loss, "device": str(dev), "launches": launches}
 
 

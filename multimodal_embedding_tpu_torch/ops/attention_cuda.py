@@ -39,8 +39,8 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 
 # Kernel launches made by fused_attention and by fused_attention_qkv, each
-# counted apart, and the f32 kernel's launches of either (plain counts, read
-# by chip_smoke.py).
+# counted apart, and the f32 kernel's launches among fused_attention's (plain
+# counts, read through ops.launch_counts).
 launches = 0
 qkv_launches = 0
 f32_launches = 0
@@ -177,17 +177,12 @@ def _needs_grad(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
-def _count_f32(out: torch.Tensor) -> None:
-    global f32_launches
-    if out.dtype == torch.float32:
-        f32_launches += 1
-
-
 def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
-    global launches
+    global launches, f32_launches
     out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
     launches += 1
-    _count_f32(out)
+    if out.dtype == torch.float32:
+        f32_launches += 1
     return out
 
 
@@ -256,7 +251,6 @@ def _launch_qkv(qkv, km, causal, sm_scale, h, kvh) -> torch.Tensor:
     with torch.profiler.record_function("fused_attention_qkv"):
         out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
     qkv_launches += 1
-    _count_f32(out)
     return out
 
 

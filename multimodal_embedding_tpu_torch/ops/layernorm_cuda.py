@@ -23,7 +23,7 @@ import torch
 
 from . import build
 
-# Kernel launches made by fused_layer_norm (a plain count, read by chip_smoke.py).
+# Kernel launches made by fused_layer_norm (a plain count, read through ops.launch_counts).
 launches = 0
 
 _c = ctypes

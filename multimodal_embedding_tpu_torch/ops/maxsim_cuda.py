@@ -39,7 +39,7 @@ IMPLS = ("auto", "pallas", "xla")
 _PLAIN_BLOCK_ELEMS = 1 << 28
 
 # Kernel launches made by maxsim_cuda, and those of the f32 kernel among them
-# (plain counts, read by chip_smoke.py).
+# (plain counts, read through ops.launch_counts).
 launches = 0
 f32_launches = 0
 

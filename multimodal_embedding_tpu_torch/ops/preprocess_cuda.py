@@ -23,7 +23,7 @@ import torch
 from . import build
 from .preprocess import PreprocessConfig, _cropped_weights, make_preprocess_fn, scale_shift
 
-# Kernel launches made by preprocess_cuda (a plain count, read by chip_smoke.py).
+# Kernel launches made by preprocess_cuda (a plain count, read through ops.launch_counts).
 launches = 0
 
 _MAX_ROWS_PER_TILE = 32

@@ -26,7 +26,8 @@ rank, the MLP split).
   on one rank to 1e-5: a decode step that did not sum its row-split
   products over the model axis differed there.
 - ``dryrun_multichip(4, device="cpu")`` prints its summary line with finite
-  losses.
+  losses, and reports its launches under the kernels' own names, the f32
+  bodies of attention and MaxSim apart (all 0 on the CPU).
 """
 
 import math
@@ -231,3 +232,6 @@ def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     assert "tp mesh={'data': 2, 'model': 2} encode ok, sp attention ok" in line
     losses = [float(x) for x in re.findall(r"loss=(\S+) ok", line)]
     assert len(losses) == 2 and all(math.isfinite(x) for x in losses + [out["loss"], out["qwen3_loss"]])
+    # each kernel's launches under its own name, the f32 bodies apart; none on the CPU
+    assert out["launches"] == dict.fromkeys(("fused_attention", "fused_attention_f32", "preprocess", "maxsim",
+                                             "maxsim_f32"), 0)

@@ -5,6 +5,13 @@ the CPU.
   ``cli/train_rl.py``, JAX-drawn weights and adapters with ``b`` nonzero,
   batch 8, prompts left-padded to 256, 48 new tokens): every batch's greedy
   tokens equal JAX's, and the three rates equal.
+- ``rl.verify.evaluate`` and ``evaluate_merged`` on trained weights, the small
+  Qwen3 bases and adapters the JAX trainer wrote under ``benchmarks/rl_demo6``
+  (fintech) and ``rl_demo4`` (support), as ``cli/verify_rl.py --dataset-size
+  16 --baseline`` runs them: the same rates (some strictly between 0 and
+  100: rl_demo6's trained clean-JSON rate is 56.25) and every batch's greedy
+  tokens equal JAX's. Read only; the CLIs themselves append to
+  ``verify_rl.log`` in the working directory.
 - The copied host modules (``rewards``, ``datasets``, ``tokenizer``) give the
   JAX package's records, scores and ids for one seed.
 - ``cli/verify_rl.py --device cpu --arch qwen3 --model-size debug`` prints the
@@ -18,6 +25,7 @@ the CPU.
 """
 
 import ast
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -26,6 +34,7 @@ import torch
 
 from multimodal_embedding_tpu.cli import verify_rl as jcli
 from multimodal_embedding_tpu.cli.train_rl import default_gemma_config, default_qwen3_config
+from multimodal_embedding_tpu.models.checkpoint import load_params as jax_load_params
 from multimodal_embedding_tpu.models.checkpoint import save_params as jax_save_params
 from multimodal_embedding_tpu.models.gemma import gemma_init
 from multimodal_embedding_tpu.models.qwen3 import qwen3_init
@@ -48,6 +57,7 @@ from multimodal_embedding_tpu_torch.rl.policy import QWEN3
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LORA = dict(rank=2, alpha=4)
+BENCHMARKS = Path(__file__).resolve().parent.parent / "benchmarks"
 
 
 @pytest.fixture(scope="module")
@@ -86,6 +96,37 @@ def test_evaluate_merged_matches_jax(qwen3_debug, monkeypatch):
     for j, t in zip(jtoks, ttoks):
         np.testing.assert_array_equal(t, j)
     assert got == want
+
+
+@pytest.mark.parametrize("demo, task", [("rl_demo6", "fintech"), ("rl_demo4", "support")])
+def test_trained_weights_verify_as_in_jax(demo, task, monkeypatch):
+    """The CLIs' verification of a trained base and its adapters (written by
+    the JAX package's trainer): the dataset of ``--dataset-size 16 --seed
+    42``, the untrained base then the merged policy at the CLI's LoRA rank 16,
+    alpha 32."""
+    base, adapters = BENCHMARKS / demo / "base_params.npz", BENCHMARKS / demo / "lora_adapters.npz"
+    gen, field = {"fintech": ("generate_fintech_dataset", "decision"),
+                  "support": ("generate_support_tickets", "category")}[task]
+    jtoks, ttoks = [], []
+    monkeypatch.setattr(jverify, "generate", _recording(jverify.generate, jtoks))
+    monkeypatch.setattr(tverify, "generate", _recording(tverify.generate, ttoks))
+    jparams, jcfg = jax_load_params(base)
+    dataset = getattr(jdata, gen)(16, seed=43)
+    want = [jverify.evaluate(jparams, jcfg, dataset, field, arch=JQWEN3),
+            jverify.evaluate_merged(jparams, tcli.load_adapters(str(adapters)), jlora.LoraConfig(), jcfg, dataset,
+                                    field, arch=JQWEN3)]
+    tree, tcfg = load_params(base)
+    model = QWEN3.from_params(tree, tcfg, device="cpu")
+    dataset = getattr(tdata, gen)(16, seed=43)
+    got = [tverify.evaluate(model, dataset, field),
+           tverify.evaluate_merged(model, tcli.load_adapters(str(adapters)), tlora.LoraConfig(), dataset, field)]
+    assert got == want
+    # each batch of 8 prompts, the base's then the merged policy's: the same greedy ids
+    assert len(ttoks) == len(jtoks) == 4
+    for t, j in zip(ttoks, jtoks):
+        np.testing.assert_array_equal(t, j)
+    rates = [s[k] for s in got for k in ("no_think_rate", "clean_json_rate", "accuracy")]
+    assert any(0.0 < r < 100.0 for r in rates), rates
 
 
 def test_host_copies_match_jax():
