@@ -300,6 +300,14 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_launches() -> int:
+    """The attention kernel's launches so far, both bodies (``ops.launch_counts``)."""
+    from multimodal_embedding_tpu_torch.ops import launch_counts
+
+    counts = launch_counts()
+    return counts["fused_attention"] + counts["fused_attention_f32"]
+
+
 def device_ms(fn, iters: int = 10, windows: int = 3, tries: int = 6) -> float | None:
     """Mean device time of the kernels ``fn`` launches per call, from
     torch.profiler windows of ``iters`` calls: what ``ms`` reads less the
@@ -1883,7 +1891,6 @@ def _qwen3_consistency(dev) -> dict:
 
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
-    from multimodal_embedding_tpu_torch.ops import attention_cuda
 
     cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
     model = Qwen3(cfg, gen=torch.Generator(device=dev).manual_seed(1), device=dev, dtype=torch.bfloat16)
@@ -1896,10 +1903,10 @@ def _qwen3_consistency(dev) -> dict:
     ids, mask = torch.from_numpy(ids_np).to(dev), torch.from_numpy(mask_np).to(dev)
     valid = mask.bool()
     with torch.no_grad():
-        attention_cuda.launches = 0
+        a0 = attention_launches()
         hk, _ = model.prefill(ids, mask, t)
         lk = model.lm_logits(hk[:, -1:])[:, 0]
-        launches = attention_cuda.launches
+        launches = attention_launches() - a0
         layers.set_attention_impl("xla")
         try:
             hp, _ = model32.prefill(ids, mask, t)
@@ -1950,7 +1957,6 @@ def _qwen3_serving(dev) -> dict:
 
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
-    from multimodal_embedding_tpu_torch.ops import attention_cuda
     from multimodal_embedding_tpu_torch.rl import verify
     from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
     from multimodal_embedding_tpu_torch.rl.generate import generate
@@ -1972,11 +1978,11 @@ def _qwen3_serving(dev) -> dict:
 
     def timed_generate(m, ids, mask, max_new, **kw):
         torch.cuda.synchronize()
-        a0, t0 = attention_cuda.launches, time.perf_counter()
+        a0, t0 = attention_launches(), time.perf_counter()
         toks, logps = generate(m, ids, mask, max_new, **kw)
         torch.cuda.synchronize()
         calls.append({"model": m, "ids": ids, "mask": mask, "toks": toks, "s": time.perf_counter() - t0,
-                      "attention": attention_cuda.launches - a0})
+                      "attention": attention_launches() - a0})
         return toks, logps
 
     def timed_prefill(m, *a, **kw):
@@ -1988,9 +1994,9 @@ def _qwen3_serving(dev) -> dict:
         return out
 
     def counted_decode_step(m, *a, **kw):
-        a0 = attention_cuda.launches
+        a0 = attention_launches()
         out = decode_step(m, *a, **kw)
-        decode_launches[0] += attention_cuda.launches - a0
+        decode_launches[0] += attention_launches() - a0
         return out
 
     verify.generate, Qwen3.prefill, Qwen3.decode_step = timed_generate, timed_prefill, counted_decode_step
@@ -2045,12 +2051,12 @@ def _qwen3_serving(dev) -> dict:
     # the same merged weights through the plain attention path, first batch
     layers.set_attention_impl("xla")
     try:
-        attention_cuda.launches = 0
+        a0 = attention_launches()
         plain_toks, _ = generate(merged, ids, mask, VERIFY_NEW, greedy=True)
         with torch.no_grad():
             hidden, _ = merged.prefill(ids, mask, tp)
             first_p = merged.lm_logits(hidden[:, -1:])[:, 0]
-        require(attention_cuda.launches == 0, "the plain path launched the attention kernel")
+        require(attention_launches() == a0, "the plain path launched the attention kernel")
     finally:
         layers.set_attention_impl("auto")
     cos = _cosines(first_k, first_p)
@@ -2166,7 +2172,6 @@ def _grpo_consistency(dev) -> dict:
 
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
-    from multimodal_embedding_tpu_torch.ops import attention_cuda
     from multimodal_embedding_tpu_torch.rl import grpo
     from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
     from multimodal_embedding_tpu_torch.rl.rewards import support_ticket_reward
@@ -2188,11 +2193,11 @@ def _grpo_consistency(dev) -> dict:
     for side, tr in trainers.items():
         layers.set_attention_impl("auto" if side == "kernels_bf16" else "xla")
         try:
-            attention_cuda.launches = 0
+            a0 = attention_launches()
             with torch.no_grad():
                 ref = grpo._completion_logps(tr.base, p_ids, p_mask, comps)
             (loss, (pg, kl)), grads = tr.loss_and_grads(trainer.adapters, p_ids, p_mask, comps, comp_mask, adv, ref)
-            runs[side] = (float(loss), float(pg), float(kl), grads, attention_cuda.launches)
+            runs[side] = (float(loss), float(pg), float(kl), grads, attention_launches() - a0)
         finally:
             layers.set_attention_impl("auto")
     (lk, pk, kk, gk, nk), (lp, pp, kp, gp, np_) = runs["kernels_bf16"], runs["plain_f32"]
@@ -2218,7 +2223,6 @@ def _timed_train(trainer, tickets: list[dict]) -> dict:
     launches of each part counted apart."""
     import torch
 
-    from multimodal_embedding_tpu_torch.ops import attention_cuda
     from multimodal_embedding_tpu_torch.rl import grpo
 
     parts: list[dict] = []
@@ -2229,11 +2233,11 @@ def _timed_train(trainer, tickets: list[dict]) -> dict:
             if part == "rollout":
                 parts.append({})
             torch.cuda.synchronize()
-            a0, t0 = attention_cuda.launches, time.perf_counter()
+            a0, t0 = attention_launches(), time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             parts[-1][f"{part}_s"] = time.perf_counter() - t0
-            parts[-1][f"{part}_attention"] = attention_cuda.launches - a0
+            parts[-1][f"{part}_attention"] = attention_launches() - a0
             return out
         return run
 
@@ -2247,11 +2251,11 @@ def _timed_train(trainer, tickets: list[dict]) -> dict:
         setattr(trainer, attr, timed(part, getattr(trainer, attr)))
     grpo._completion_logps = logps
     try:
-        attention_cuda.launches = 0
+        a0 = attention_launches()
         t0 = time.perf_counter()
         stats = trainer.train(tickets)
         train_s = time.perf_counter() - t0
-        launches = attention_cuda.launches
+        launches = attention_launches() - a0
     finally:
         grpo._completion_logps = completion_logps
         for attr in wrapped:  # the wrappers hold the trainer: a cycle that would keep its model on the card
@@ -2748,7 +2752,6 @@ def _rank_cut_checks(dev, report: dict) -> None:
     import torch
 
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
-    from multimodal_embedding_tpu_torch.ops import attention_cuda
     from multimodal_embedding_tpu_torch.parallel.mesh import get_mesh, share_from_rank0
     from multimodal_embedding_tpu_torch.parallel.tp import shard_params_tp
     from multimodal_embedding_tpu_torch.rl import grpo
@@ -2790,7 +2793,7 @@ def _rank_cut_checks(dev, report: dict) -> None:
     out["one_rank"] = runs[id(one)][1]
     for tag, (tr, alone) in sides.items():
         batch, want, grads = runs[id(alone)]
-        attention_cuda.launches = 0
+        a0 = attention_launches()
         with _q_shapes() as shapes:
             (loss, (pg, kl)), g = tr.loss_and_grads(tr.adapters, *batch)
         got = {"loss": float(loss), "pg": float(pg), "kl": float(kl)}
@@ -2799,7 +2802,7 @@ def _rank_cut_checks(dev, report: dict) -> None:
         tr._update(g)
         out[tag] = {**got, "rel_diff": {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in got},
                     "grad_cosine": cos, "grad_cosine_min": min(cos.values()),
-                    "loss_pass_attention": attention_cuda.launches, "q_shapes": sorted(shapes),
+                    "loss_pass_attention": attention_launches() - a0, "q_shapes": sorted(shapes),
                     "adapter_crc": _adapter_crcs(tr.adapters)}
     out["tp2"].update(greedy)
     out["seconds"] = time.perf_counter() - t0

@@ -124,7 +124,9 @@ def parse_args(argv=None):
                    help="Persist/resume encoded score matrices (skip re-encoding "
                         "on reruns of the same model+dataset)")
     p.add_argument("--profile-dir", type=str, default=None,
-                   help="Capture a torch.profiler trace of each model's benchmark")
+                   help="Capture a torch.profiler trace of each model's benchmark; the trace carries the "
+                        "port's mme.* ranges (encode sweeps, batches, tokenization, kernel calls), which cost "
+                        "nothing when no profiler runs")
     p.add_argument("--attention-impl", type=str, default="auto",
                    choices=["auto", "xla", "xla_bf16", "pallas", "flash"],
                    help="Tower self-attention: auto (the fused CUDA kernel on the "

@@ -50,6 +50,7 @@ from ..ops.preprocess import host_resize_crop, make_normalize_fn, make_preproces
 from ..ops.preprocess_cuda import make_preprocess_cuda_fn
 from ..parallel.batched import gather_batches, local_slice, pad_to_multiple, sharded_batch_apply
 from ..parallel.mesh import Mesh, gather_rows, shard_rows, share_from_rank0
+from ..utils.profiling import Tally
 from ..utils.timing import hard_sync
 from .layers import l2_normalize
 from .zoo import LoadedModel
@@ -320,6 +321,7 @@ class EncodingEngine:
         self.host_workers = host_workers
         self._pre_fns: dict[tuple[int, int], object] = {}
         self._norm_fn = make_normalize_fn(model.preprocess, device=self.device)
+        self.tally = Tally()  # this engine's spans and row counts (utils/profiling.py)
 
     # --- internals ---
 
@@ -340,17 +342,42 @@ class EncodingEngine:
 
     @torch.inference_mode()
     def _image_batch(self, batch_u8: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        px = self._preprocess_fn(h, w)(batch_u8)
-        return self._finish(self.model.model.encode_image(px))
+        with self.tally.span("encode.image_batch"):
+            px = self._preprocess_fn(h, w)(batch_u8)
+            return self._finish(self.model.model.encode_image(px))
 
     @torch.inference_mode()
     def _crop_batch(self, crops_u8: torch.Tensor) -> torch.Tensor:
         """Host-resized crops [B, 3, C, C] uint8: normalize, then encode."""
-        return self._finish(self.model.model.encode_image(self._norm_fn(crops_u8)))
+        with self.tally.span("encode.image_batch"):
+            return self._finish(self.model.model.encode_image(self._norm_fn(crops_u8)))
 
     @torch.inference_mode()
     def _text_batch(self, ids: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
-        return self._finish(self.model.model.encode_text(ids, mask))
+        with self.tally.span("encode.text_batch"):
+            return self._finish(self.model.model.encode_text(ids, mask))
+
+    def _count_images(self, rows: int, valid: int) -> None:
+        """Count this data rank's ``rows`` of a batch whose first ``valid``
+        rows (over every rank) are images, the rest padding."""
+        start = 0 if self.mesh is None else self.mesh.data_rank * rows
+        self.tally.count("encode.image_rows", rows)
+        self.tally.count("encode.image_pad_rows", rows - min(max(valid - start, 0), rows))
+
+    def _count_text(self, mask: np.ndarray, batch_size: int) -> None:
+        """Count the positions of the rows this data rank runs in batches of
+        ``batch_size`` (``sharded_batch_apply``'s split), and the zeros of the
+        host ``mask`` among them (a pad row's positions all)."""
+        n, length = mask.shape
+        n_data = 1 if self.mesh is None else self.mesh.n_data
+        if n_data == 1:
+            rows, real = n, int(mask.sum())
+        else:
+            per = pad_to_multiple(batch_size, n_data) // n_data
+            starts = [s + self.mesh.data_rank * per for s in range(0, n, per * n_data)]
+            rows, real = per * len(starts), sum(int(mask[s : s + per].sum()) for s in starts)
+        self.tally.count("encode.text_positions", rows * length)
+        self.tally.count("encode.text_pad_positions", rows * length - real)
 
     def _encode_group(self, dev: torch.Tensor, h: int, w: int, count: int) -> torch.Tensor:
         """Embeddings of the first ``count`` images of staged batches
@@ -359,8 +386,9 @@ class EncodingEngine:
         this engine's batch is split."""
         embs = []
         step_rows = self._local_batch
-        for batch_u8 in dev:
+        for i, batch_u8 in enumerate(dev):
             b = batch_u8.shape[0]
+            self._count_images(b, count - i * b * (1 if self.mesh is None else self.mesh.n_data))
             step = step_rows if b % step_rows == 0 else b
             for s in range(0, b, step):
                 embs.append(self._image_batch(batch_u8[s : s + step], h, w))
@@ -394,6 +422,10 @@ class EncodingEngine:
         an image, so the first batch is ready after a batch of resizes across
         all workers) and ships the crops in input order, the last batch
         padded with repeats of its last image."""
+        with self.tally.span("encode.images"):
+            return self._encode_images(images)
+
+    def _encode_images(self, images: list[np.ndarray]) -> EncodeResult:
         t0 = time.perf_counter()
         chunks = []
         if self.transport == "host":
@@ -407,6 +439,7 @@ class EncodingEngine:
                     if pad:
                         batch = np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
                     dev = torch.from_numpy(np.ascontiguousarray(self._local_rows(batch))).to(self.device)
+                    self._count_images(dev.shape[0], len(bidx))
                     chunks.append((bidx, gather_rows(self._crop_batch(dev), self.mesh)[: len(bidx)]))
         else:
             groups: dict[tuple[int, int], list[int]] = {}
@@ -417,16 +450,18 @@ class EncodingEngine:
                     bidx = idxs[s : s + self.batch_size]
                     batch = np.stack([images[i] for i in bidx]).transpose(0, 3, 1, 2)
                     dev = torch.from_numpy(np.ascontiguousarray(self._local_rows(batch))).to(self.device)
+                    self._count_images(dev.shape[0], len(bidx))
                     chunks.append((bidx, gather_rows(self._image_batch(dev, h, w), self.mesh)[: len(bidx)]))
         out = hard_sync(self._scatter(chunks, len(images)))
         return EncodeResult(out, None, time.perf_counter() - t0)
 
     def encode_images_cached(self, cache: DeviceImageCache) -> EncodeResult:
         """Encode from a device-resident image cache, batch by batch."""
-        t0 = time.perf_counter()
-        chunks = [(idxs, self._encode_group(dev, h, w, count)) for (h, w), idxs, dev, count in cache.groups]
-        out = hard_sync(self._scatter(chunks, cache.n_images))
-        return EncodeResult(out, None, time.perf_counter() - t0)
+        with self.tally.span("encode.images"):
+            t0 = time.perf_counter()
+            chunks = [(idxs, self._encode_group(dev, h, w, count)) for (h, w), idxs, dev, count in cache.groups]
+            out = hard_sync(self._scatter(chunks, cache.n_images))
+            return EncodeResult(out, None, time.perf_counter() - t0)
 
     def encode_images_streaming(self, stager: AsyncImageStager) -> EncodeResult:
         """Encode from an in-flight :class:`AsyncImageStager`, each slice as
@@ -436,6 +471,10 @@ class EncodingEngine:
         embeddings are synchronized before the stall clock restarts, so its
         device work is never counted as stall; the stager's thread keeps
         uploading meanwhile."""
+        with self.tally.span("encode.images"):
+            return self._encode_streaming(stager)
+
+    def _encode_streaming(self, stager: AsyncImageStager) -> EncodeResult:
         t0 = time.perf_counter()
         stall = 0.0
         chunks = []
@@ -468,14 +507,17 @@ class EncodingEngine:
         """Tokenize on the host, ship the ids once (rank 0's, broadcast, in a
         world of more than one rank), encode in batches of ``max(batch,
         128)`` (text sequences are short), each data rank its rows."""
-        t0 = time.perf_counter()
-        ids, mask = self.model.tokenize(texts)
-        ids_d = share_from_rank0(ids.astype(np.int64), self.device)
-        mask_d = share_from_rank0(mask, self.device)
-        bs = max(self.batch_size, 128)
-        out = hard_sync(sharded_batch_apply(self._text_batch, (ids_d, mask_d), mesh=self.mesh, batch_size=bs))
-        out_mask = mask_d if self.model.multi_vector else None
-        return EncodeResult(out, out_mask, time.perf_counter() - t0)
+        with self.tally.span("encode.texts"):
+            t0 = time.perf_counter()
+            with self.tally.span("encode.tokenize"):
+                ids, mask = self.model.tokenize(texts)
+            ids_d = share_from_rank0(ids.astype(np.int64), self.device)
+            mask_d = share_from_rank0(mask, self.device)
+            bs = max(self.batch_size, 128)
+            self._count_text(mask, bs)
+            out = hard_sync(sharded_batch_apply(self._text_batch, (ids_d, mask_d), mesh=self.mesh, batch_size=bs))
+            out_mask = mask_d if self.model.multi_vector else None
+            return EncodeResult(out, out_mask, time.perf_counter() - t0)
 
     def warmup_texts(self, text_sets: list[list[str]]) -> None:
         """Run each caption set once before timing (first-use costs: kernel

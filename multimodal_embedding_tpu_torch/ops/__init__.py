@@ -1,23 +1,20 @@
 """The port's kernels (``*_cuda.py`` over ``csrc/``), their plain versions,
-and the launch counts their wrappers keep."""
+and the launch counts their wrappers keep in ``utils/profiling.py:KERNELS``."""
+
+from ..utils.profiling import KERNELS
+
+# Every launch counts under one name: the f32 bodies of attention and MaxSim
+# apart from the bf16 ones, the prologue's row pass alone apart from the
+# whole prologue.
+LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
+               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows")
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel's launches since :func:`reset_launch_counts`, by kernel:
-    the f32 bodies of attention and MaxSim apart from the bf16 ones, so that
-    every launch counts under one name."""
-    from . import attention_cuda as a, fused_ln_matmul_cuda, layernorm_cuda, maxsim_cuda as m, preprocess_cuda
-
-    return {"fused_attention": a.launches - a.f32_launches, "fused_attention_f32": a.f32_launches,
-            "fused_attention_qkv": a.qkv_launches, "preprocess": preprocess_cuda.launches,
-            "maxsim": m.launches - m.f32_launches, "maxsim_f32": m.f32_launches,
-            "fused_res_norm_matmul": fused_ln_matmul_cuda.launches, "fused_layer_norm": layernorm_cuda.launches}
+    """Each kernel's launches since :func:`reset_launch_counts`, by kernel."""
+    return {k: KERNELS.counts.get(k, 0) for k in LAUNCH_KEYS}
 
 
 def reset_launch_counts() -> None:
     """Set every count :func:`launch_counts` reads to 0."""
-    from . import attention_cuda as a, fused_ln_matmul_cuda, layernorm_cuda, maxsim_cuda as m, preprocess_cuda
-
-    a.launches = a.qkv_launches = a.f32_launches = 0
-    m.launches = m.f32_launches = 0
-    preprocess_cuda.launches = fused_ln_matmul_cuda.launches = layernorm_cuda.launches = 0
+    KERNELS.reset()

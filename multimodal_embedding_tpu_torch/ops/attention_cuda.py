@@ -33,17 +33,11 @@ import math
 
 import torch
 
+from ..utils.profiling import KERNELS
 from . import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-
-# Kernel launches made by fused_attention and by fused_attention_qkv, each
-# counted apart, and the f32 kernel's launches among fused_attention's (plain
-# counts, read through ops.launch_counts).
-launches = 0
-qkv_launches = 0
-f32_launches = 0
 
 _c = ctypes
 _ARGTYPES = (
@@ -178,11 +172,9 @@ def _needs_grad(*xs: torch.Tensor) -> bool:
 
 
 def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
-    global launches, f32_launches
-    out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
-    launches += 1
-    if out.dtype == torch.float32:
-        f32_launches += 1
+    with KERNELS.span("kernel.fused_attention"):
+        out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
+    KERNELS.count("fused_attention_f32" if out.dtype == torch.float32 else "fused_attention")
     return out
 
 
@@ -247,10 +239,9 @@ def _plain_qkv(qkv, km, causal, sm_scale, h, kvh):
 
 
 def _launch_qkv(qkv, km, causal, sm_scale, h, kvh) -> torch.Tensor:
-    global qkv_launches
-    with torch.profiler.record_function("fused_attention_qkv"):
+    with KERNELS.span("kernel.fused_attention_qkv"):
         out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
-    qkv_launches += 1
+    KERNELS.count("fused_attention_qkv")
     return out
 
 

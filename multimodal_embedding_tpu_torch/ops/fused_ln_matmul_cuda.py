@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import KERNELS
 from . import build
 
 NORMS = ("ln", "rms_gemma")
@@ -43,12 +44,6 @@ ACTS = {
     "gelu_pytorch_tanh": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
 }
 _ACT_CODES = {None: 0, "gelu": 1, "quick_gelu": 2, "gelu_pytorch_tanh": 3}
-
-# Calls of fused_res_norm_matmul that launched its kernels (each call is two
-# device launches, the row pass and the product), and calls of
-# fused_res_norm_rows (one launch): plain counts, read by chip_smoke.py.
-launches = 0
-row_launches = 0
 
 _c = ctypes
 _ARGTYPES = {
@@ -157,7 +152,13 @@ def _ptr(t):
 
 
 def _launch(x, delta, gamma, beta, w, b, norm, eps, act):
-    global launches
+    """The kernels' call, counted once under ``fused_res_norm_matmul`` though
+    it is two device launches (the row pass, then the product)."""
+    with KERNELS.span("kernel.fused_res_norm_matmul"):
+        return _run(x, delta, gamma, beta, w, b, norm, eps, act)
+
+
+def _run(x, delta, gamma, beta, w, b, norm, eps, act):
     x2, d2, gamma, beta, gb_vec, m, d = _rows_args(x, delta, gamma, beta)
     for name, v in (("w", w), ("b", b)):
         if v is not None and (v.dtype != x.dtype or v.device != x.device):
@@ -171,14 +172,13 @@ def _launch(x, delta, gamma, beta, w, b, norm, eps, act):
         return x_new.reshape(x.shape), y.reshape(*x.shape[:-1], n)
     h = torch.empty_like(x2)  # the row pass's output, the product's A operand
     w_vec = int(w.data_ptr() % 16 == 0 and (n * w.element_size()) % 16 == 0)
-    with torch.profiler.record_function("fused_res_norm_matmul"):
-        code = _entry("fused_ln_matmul_fwd")(
-            1 if x.dtype == torch.bfloat16 else 0, x2.data_ptr(), _ptr(d2), gamma.data_ptr(), _ptr(beta),
-            w.data_ptr(), _ptr(b), x_new.data_ptr(), h.data_ptr(), y.data_ptr(), m, d, n, NORMS.index(norm),
-            _ACT_CODES[act], float(eps), gb_vec, w_vec, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    code = _entry("fused_ln_matmul_fwd")(
+        1 if x.dtype == torch.bfloat16 else 0, x2.data_ptr(), _ptr(d2), gamma.data_ptr(), _ptr(beta),
+        w.data_ptr(), _ptr(b), x_new.data_ptr(), h.data_ptr(), y.data_ptr(), m, d, n, NORMS.index(norm),
+        _ACT_CODES[act], float(eps), gb_vec, w_vec, torch.cuda.current_stream(x.device).cuda_stream,
+    )
     build.check(code, "prologue kernel")
-    launches += 1
+    KERNELS.count("fused_res_norm_matmul")
     return x_new.reshape(x.shape), y.reshape(*x.shape[:-1], n)
 
 
@@ -243,7 +243,6 @@ def fused_res_norm_rows(
     """The prologue's row pass alone: ``(x_new, h)`` in x's dtype, each
     shaped like x. Its kernel on CUDA tensors, :func:`reference_rows` on CPU
     tensors; no gradient (it exists to check and time the row pass)."""
-    global row_launches
     _check_rows(x, delta, gamma, beta, norm)
     if x.device.type == "cpu":
         return reference_rows(x, delta, gamma, beta, norm=norm, eps=eps)
@@ -258,5 +257,5 @@ def fused_res_norm_rows(
             torch.cuda.current_stream(x.device).cuda_stream,
         )
         build.check(code, "prologue row pass")
-        row_launches += 1
+        KERNELS.count("fused_res_norm_rows")
     return x_new.reshape(x.shape), h.reshape(x.shape)

@@ -21,10 +21,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import KERNELS
 from . import build
-
-# Kernel launches made by fused_layer_norm (a plain count, read through ops.launch_counts).
-launches = 0
 
 _c = ctypes
 _ARGTYPES = [_c.c_int] + [_c.c_void_p] * 4 + [_c.c_int, _c.c_int, _c.c_float, _c.c_int, _c.c_void_p]
@@ -50,7 +48,11 @@ def reference(x, scale, bias, *, eps: float = 1e-5) -> torch.Tensor:
 
 
 def _launch(x, scale, bias, eps):
-    global launches
+    with KERNELS.span("kernel.fused_layer_norm"):
+        return _run(x, scale, bias, eps)
+
+
+def _run(x, scale, bias, eps):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"layernorm kernel takes bfloat16 or float32, not {x.dtype}")
     for name, v in (("scale", scale), ("bias", bias)):
@@ -72,7 +74,7 @@ def _launch(x, scale, bias, eps):
         x2.shape[0], d, float(eps), sb_vec, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(code, "layernorm kernel")
-    launches += 1
+    KERNELS.count("fused_layer_norm")
     return y.reshape(x.shape)
 
 

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..utils.profiling import KERNELS
 from . import build
 
 NEG_INF = -1e30
@@ -37,11 +38,6 @@ IMPLS = ("auto", "pallas", "xla")
 # Elements of one f32 similarity block [NQ chunk, doc chunk, TQ, TD] in the
 # plain version (1 GiB): queries are chunked too so that long sweeps fit.
 _PLAIN_BLOCK_ELEMS = 1 << 28
-
-# Kernel launches made by maxsim_cuda, and those of the f32 kernel among them
-# (plain counts, read through ops.launch_counts).
-launches = 0
-f32_launches = 0
 
 _c = ctypes
 _ARGTYPES = [_c.c_int] + [_c.c_void_p] * 5 + [_c.c_int] * 5 + [_c.c_longlong] * 4 + [_c.c_int] * 2 + [_c.c_void_p]
@@ -181,7 +177,11 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
     """Launch the kernel: q [NQ, TQ, D], d [ND, TD, D] on the card (both
     bfloat16 or both float32, D a multiple of 8 up to 128); q_mask [NQ, TQ]
     (weights), d_mask [ND, TD] (nonzero = valid). Returns f32 [NQ, ND]."""
-    global launches, f32_launches
+    with KERNELS.span("kernel.maxsim"):
+        return _launch(q, d, q_mask, d_mask)
+
+
+def _launch(q, d, q_mask, d_mask) -> torch.Tensor:
     if q.device.type != "cuda" or d.device != q.device:
         raise ValueError(f"maxsim kernel takes CUDA tensors on one device, not {q.device} and {d.device}")
     if q.dtype not in (torch.bfloat16, torch.float32) or d.dtype != q.dtype:
@@ -216,9 +216,7 @@ def maxsim_cuda(q, d, q_mask=None, d_mask=None) -> torch.Tensor:
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(code, "maxsim kernel")
-    launches += 1
-    if not bf16:
-        f32_launches += 1
+    KERNELS.count("maxsim" if bf16 else "maxsim_f32")
     return out
 
 

@@ -20,11 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.profiling import KERNELS
 from . import build
 from .preprocess import PreprocessConfig, _cropped_weights, make_preprocess_fn, scale_shift
-
-# Kernel launches made by preprocess_cuda (a plain count, read through ops.launch_counts).
-launches = 0
 
 _MAX_ROWS_PER_TILE = 32
 # Bytes a block stages in shared memory: its input rows and their horizontal
@@ -149,7 +147,11 @@ def preprocess_weights(cfg: PreprocessConfig, h: int, w: int, device) -> Preproc
 
 def preprocess_cuda(images_u8: torch.Tensor, wts: PreprocessWeights) -> torch.Tensor:
     """Launch the kernel: uint8 [B, 3, H, W] on the card -> f32 [B, C, C, 3]."""
-    global launches
+    with KERNELS.span("kernel.preprocess"):
+        return _launch(images_u8, wts)
+
+
+def _launch(images_u8: torch.Tensor, wts: PreprocessWeights) -> torch.Tensor:
     if images_u8.device.type != "cuda" or images_u8.dtype != torch.uint8:
         raise ValueError(f"preprocess kernel takes a uint8 CUDA tensor, not {images_u8.dtype} on {images_u8.device}")
     if images_u8.dim() != 4 or tuple(images_u8.shape[1:]) != (3, wts.h, wts.w):
@@ -170,7 +172,7 @@ def preprocess_cuda(images_u8: torch.Tensor, wts: PreprocessWeights) -> torch.Te
         *wts.scale, *wts.shift, torch.cuda.current_stream(images_u8.device).cuda_stream,
     )
     build.check(code, "preprocess kernel")
-    launches += 1
+    KERNELS.count("preprocess")
     return out
 
 

@@ -30,11 +30,23 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_embedding_tpu_torch.ops import attention_cuda, fused_ln_matmul_cuda, layernorm_cuda, maxsim_cuda
+from multimodal_embedding_tpu_torch.ops import (
+    attention_cuda,
+    fused_ln_matmul_cuda,
+    launch_counts,
+    layernorm_cuda,
+    maxsim_cuda,
+)
 from multimodal_embedding_tpu_torch.ops.preprocess import PreprocessConfig, make_preprocess_fn, scale_shift
 from multimodal_embedding_tpu_torch.ops.preprocess_cuda import make_preprocess_cuda_fn
 
 pytestmark = pytest.mark.cuda
+
+
+def _count(*kernels: str) -> int:
+    """Launches of ``kernels`` so far (``ops.launch_counts``)."""
+    counts = launch_counts()
+    return sum(counts[k] for k in kernels)
 
 
 @pytest.fixture
@@ -112,9 +124,9 @@ def test_map_head_cross_attention_goes_through_the_kernel(dev):
     kv = torch.randn(4, 729, 1152, generator=gen, device=dev).to(torch.bfloat16)
     try:
         layers.set_attention_impl("pallas")
-        n0 = attention_cuda.launches
+        n0 = _count("fused_attention", "fused_attention_f32")
         got = attn(probe, kv=kv)
-        assert attention_cuda.launches == n0 + 1
+        assert _count("fused_attention", "fused_attention_f32") == n0 + 1
         layers.set_attention_impl("xla")
         want = attn(probe, kv=kv)
     finally:
@@ -183,10 +195,10 @@ def test_attention_f32_takes_a_long_key_row(dev):
     row length is refused."""
     rng = np.random.default_rng(15)
     q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 4096, 64), dtype=np.float32)).to(dev) for _ in range(3))
-    before = attention_cuda.f32_launches
+    before = _count("fused_attention_f32")
     got = attention_cuda.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    assert attention_cuda.f32_launches == before + 1
+    assert _count("fused_attention_f32") == before + 1
     _assert_f32_attention_close(got, attention_cuda._plain(q, k, v, None, False, 0.125, "bhtd", 2, 2))
 
 
@@ -292,10 +304,10 @@ def test_maxsim_kernel_matches_plain(dev, dtype, tol, nq, tq, nd, td, dim, maske
         dm_np = rng.random((nd, td)) > 0.3
         dm_np[0] = False  # a doc with no valid token: -1e30 per weighted query token
         dm = torch.from_numpy(dm_np).to(dev)
-    before = maxsim_cuda.launches
+    before = _count("maxsim", "maxsim_f32")
     got = maxsim_cuda.maxsim_scores(q, d, qm, dm, impl="pallas")
     torch.cuda.synchronize()
-    assert maxsim_cuda.launches == before + 1
+    assert _count("maxsim", "maxsim_f32") == before + 1
     want = maxsim_cuda.maxsim_scores_ref(q, d, qm, dm)
     assert got.dtype == torch.float32 and got.shape == (nq, nd)
     if masked:  # the empty doc's column is exact sums of -1e30
@@ -360,10 +372,10 @@ def test_maxsim_f32_kernel_at_a_cut_of_the_search_shape(dev):
     q = torch.randn(8, 32, 128, generator=g, device=dev)
     d = torch.randn(512, 1030, 128, generator=g, device=dev)
     q, d = q / q.norm(dim=-1, keepdim=True), d / d.norm(dim=-1, keepdim=True)
-    before, before_f32 = maxsim_cuda.launches, maxsim_cuda.f32_launches
+    before, before_f32 = _count("maxsim", "maxsim_f32"), _count("maxsim_f32")
     got = maxsim_cuda.maxsim_scores(q, d)
     torch.cuda.synchronize()
-    assert (maxsim_cuda.launches, maxsim_cuda.f32_launches) == (before + 1, before_f32 + 1)
+    assert (_count("maxsim", "maxsim_f32"), _count("maxsim_f32")) == (before + 1, before_f32 + 1)
     want = maxsim_cuda.maxsim_scores_ref(q, d)
     assert got.shape == (8, 512) and bool(got.isfinite().all())
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
@@ -411,10 +423,10 @@ def test_prologue_kernel_matches_plain(dev, dtype, tol, m, d, n, has_delta, act,
     gamma = rand((d,), 0.1)
     beta, b = (rand((d,), 0.1), rand((n,), 0.1)) if norm == "ln" else (None, None)
     w = rand((d, n), d ** -0.5)
-    before = fused_ln_matmul_cuda.launches
+    before = _count("fused_res_norm_matmul")
     x_new, y = fused_ln_matmul_cuda.fused_res_norm_matmul(x, delta, gamma, beta, w, b, norm=norm, act=act)
     torch.cuda.synchronize()
-    assert fused_ln_matmul_cuda.launches == before + 1
+    assert _count("fused_res_norm_matmul") == before + 1
     want_x, _ = fused_ln_matmul_cuda.reference(x, delta, gamma, beta, w, b, norm=norm, act=act)
     f32 = [None if t is None else t.float() for t in (x, delta, gamma, beta, w, b)]
     _, want_y = fused_ln_matmul_cuda.reference(*f32, norm=norm, act=act)
@@ -443,10 +455,10 @@ def test_prologue_row_pass_matches_plain(dev, dtype, tol, m, d, has_delta, norm)
 
     x, delta = rand((m, d)), rand((m, d)) if has_delta else None
     gamma, beta = rand((d,), 0.1), rand((d,), 0.1) if norm == "ln" else None
-    before = fused_ln_matmul_cuda.row_launches
+    before = _count("fused_res_norm_rows")
     x_new, h = fused_ln_matmul_cuda.fused_res_norm_rows(x, delta, gamma, beta, norm=norm, eps=1e-6)
     torch.cuda.synchronize()
-    assert fused_ln_matmul_cuda.row_launches == before + 1
+    assert _count("fused_res_norm_rows") == before + 1
     want_x, want_h = fused_ln_matmul_cuda.reference_rows(x, delta, gamma, beta, norm=norm, eps=1e-6)
     assert torch.equal(x_new, want_x)
     assert h.dtype == dtype
@@ -506,9 +518,9 @@ def test_attention_qkv_kernel_equals_attention_on_copies(dev, dtype, h, kvh, t, 
     km = None
     if masked:
         km = torch.from_numpy((np.arange(t)[None, :] < np.array([[t], [t // 3]])).astype(np.int32)).to(dev)
-    before = attention_cuda.qkv_launches
+    before = _count("fused_attention_qkv")
     got = attention_cuda.fused_attention_qkv(qkv, km, causal=causal, num_heads=h, num_kv_heads=kvh)
-    assert attention_cuda.qkv_launches == before + 1
+    assert _count("fused_attention_qkv") == before + 1
     q, k, v = (s.contiguous() for s in attention_cuda._split_qkv(qkv, h, kvh))
     want = attention_cuda.fused_attention(q, k, v, km, causal=causal, layout="packed", num_heads=h,
                                           num_kv_heads=kvh)
@@ -544,10 +556,10 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, tol, m, d):
     rng = np.random.default_rng(8)
     x = torch.from_numpy(rng.standard_normal((m, d), dtype=np.float32) * 2 + 0.5).to(dev, dtype)
     s, b = (torch.from_numpy(rng.standard_normal(d, dtype=np.float32)).to(dev, dtype) for _ in range(2))
-    before = layernorm_cuda.launches
+    before = _count("fused_layer_norm")
     got = layernorm_cuda.fused_layer_norm(x, s, b, eps=1e-6)
     torch.cuda.synchronize()
-    assert layernorm_cuda.launches == before + 1
+    assert _count("fused_layer_norm") == before + 1
     want = layernorm_cuda.reference(x.float(), s.float(), b.float(), eps=1e-6)
     assert got.dtype == dtype
     assert _rel(got, want) <= tol
@@ -645,9 +657,9 @@ def test_decoder_generation_on_the_card_matches_the_cpu(dev, arch):
     ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
     with torch.no_grad():
         want, _ = cpu.prefill(ids, mask, ids.shape[1])
-        attention_cuda.launches = 0
+        a0 = _count("fused_attention", "fused_attention_f32")
         got, _ = card.prefill(ids.to(dev), mask.to(dev), ids.shape[1])
-    assert attention_cuda.launches == cfg.layers
+    assert _count("fused_attention", "fused_attention_f32") == a0 + cfg.layers
     valid = mask.bool()
     assert float((got.cpu()[valid] - want[valid]).abs().max()) <= 1e-4
     toks, _ = generate(card, ids.to(dev), mask.to(dev), 8, greedy=True)

@@ -21,13 +21,8 @@ import torch
 import __graft_entry__ as jentry
 from multimodal_embedding_tpu_torch import dryrun, entry as tentry, ops
 from multimodal_embedding_tpu_torch.models.zoo import dual_encoder_from_params
-from multimodal_embedding_tpu_torch.ops import (
-    attention_cuda,
-    fused_ln_matmul_cuda,
-    layernorm_cuda,
-    maxsim_cuda,
-    preprocess_cuda,
-)
+from multimodal_embedding_tpu_torch.ops import attention_cuda
+from multimodal_embedding_tpu_torch.utils.profiling import KERNELS
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -71,13 +66,24 @@ def test_entry_carries_the_dryrun():
 
 
 def test_launch_counts_put_each_launch_under_one_name(monkeypatch):
-    for mod, attr, n in ((attention_cuda, "launches", 7), (attention_cuda, "f32_launches", 3),
-                         (attention_cuda, "qkv_launches", 2), (maxsim_cuda, "launches", 5),
-                         (maxsim_cuda, "f32_launches", 1), (preprocess_cuda, "launches", 4),
-                         (fused_ln_matmul_cuda, "launches", 6), (layernorm_cuda, "launches", 8)):
-        monkeypatch.setattr(mod, attr, n)
+    """The attention wrapper counts a launch under its body's name (the
+    kernel call itself replaced: no card here); the other wrappers' counts
+    reach ``launch_counts`` under their own keys, the prologue's row pass
+    too."""
+    monkeypatch.setattr(KERNELS, "counts", {})
+    monkeypatch.setattr(attention_cuda, "_run", lambda q, *args: q)
+    for dtype, n in ((torch.bfloat16, 4), (torch.float32, 3)):
+        x = torch.zeros(1, 2, 3, 8, dtype=dtype)
+        for _ in range(n):
+            attention_cuda._launch(x, x, x, None, False, 1.0, "bhtd", 2, 2)
+    for _ in range(2):
+        attention_cuda._launch_qkv(torch.zeros(1, 3, 48, dtype=torch.bfloat16), None, True, 1.0, 2, 2)
+    for name, n in (("maxsim", 4), ("maxsim_f32", 1), ("preprocess", 4), ("fused_res_norm_matmul", 6),
+                    ("fused_layer_norm", 8), ("fused_res_norm_rows", 5)):
+        KERNELS.count(name, n)
     counts = ops.launch_counts()
     assert counts == {"fused_attention": 4, "fused_attention_f32": 3, "fused_attention_qkv": 2, "preprocess": 4,
-                      "maxsim": 4, "maxsim_f32": 1, "fused_res_norm_matmul": 6, "fused_layer_norm": 8}
+                      "maxsim": 4, "maxsim_f32": 1, "fused_res_norm_matmul": 6, "fused_layer_norm": 8,
+                      "fused_res_norm_rows": 5}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
