@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --cases maxsim,preprocess    # the build and these phase-2 cases only
-                                                      # (sets: attention, attention_qkv, maxsim,
-                                                      # prologue, layernorm, preprocess)
+                                                      # (sets: activation, attention, attention_qkv,
+                                                      # maxsim, prologue, layernorm, preprocess)
     python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
@@ -31,7 +31,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
      32 tokens against ``[5000,1030,128]``, checked on its first 4 queries;
      each f32 case also prints its 3xTF32 bound, its TFLOP/s and SDPA's
      device time; and phase 13's ``entry()`` shapes, ViT-L ``[8,577,16x64]``
-     and the b8 480x640 preprocess),
+     and the b8 480x640 preprocess; the MLP activation at fc1's output in the
+     benchmark cells' towers, ViT-L b32, CLIP text b128, So400m b32 and
+     SigLIP text b128, at ViT-H b32 and on a ragged f32 tensor, each beside
+     its plain composition and, for the GELUs, ``F.gelu``),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -242,6 +245,9 @@ PROLOGUE_REL_TOL_BF16 = 1e-2
 PROLOGUE_REL_TOL_F32 = 1e-5
 LN_REL_TOL_BF16 = 1e-2  # LayerNorm, the same relative limits against f32
 LN_REL_TOL_F32 = 1e-5
+# the MLP activation against the plain version in the same dtype: within one
+# ulp (two in f32), bit-equal on at least this share of the elements
+ACT_MIN_BIT_EQUAL = 0.999
 COSINE_MIN = 0.999
 # ColPali per-token cosine, kernels in bf16 vs plain versions in f32: 27
 # SigLIP and 18 Gemma layers of bf16 rounding at full width.
@@ -777,6 +783,69 @@ def _layer_norm_case(name, *, m, d, dtype, eps, rng):
     return case
 
 
+def _ulps(got, want):
+    """Units in the last place between two tensors of one float dtype,
+    element by element (+0 and -0 the same point)."""
+    import torch
+
+    bits, mag = (torch.int16, 0x7FFF) if got.element_size() == 2 else (torch.int32, 0x7FFFFFFF)
+
+    def ordered(t):
+        b = t.view(bits).to(torch.int64)
+        return torch.where(b < 0, -(b & mag), b & mag)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _activation_case(name, *, m, n, act, dtype, rng):
+    """The MLP activation kernel on normals x 3 at a tower's fc1 output
+    [tokens, mlp_dim]: at most one ulp (two in f32) from the plain version in
+    the same dtype and bit-equal on at least 99.9% of the elements; its
+    device time against the bytes bound (one read, one write), the plain
+    composition's (``plain_device_ms``: five launches for quick_gelu, three
+    for the GELUs in bf16) and, for the GELUs, ``F.gelu`` on the same dtype
+    (one ATen launch that computes the same function; the port does not call
+    it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from multimodal_embedding_tpu_torch.ops import activation_cuda as ac
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    h = (torch.randn((m, n), generator=gen, device=dev) * 3).to(dtype)
+    y = ac.mlp_activation(h, act)
+    torch.cuda.synchronize()
+    want = ac.reference(h, act)
+    d = _ulps(y, want)
+    max_ulps, bit_equal = int(d.max()), float((d == 0).double().mean())
+    err = float((y.float() - want.float()).abs().max())
+    del want, d
+    ulps_limit = 2 if dtype == torch.float32 else 1
+    require(max_ulps <= ulps_limit and bit_equal >= ACT_MIN_BIT_EQUAL,
+            f"activation {name}: {max_ulps} ulps at most, {bit_equal} bit-equal")
+    ms = cuda_time_ms(lambda: ac.mlp_activation(h, act))
+    dev_ms = device_ms(lambda: ac.mlp_activation(h, act))
+    plain_ms = cuda_time_ms(lambda: ac.reference(h, act))
+    plain_dev_ms = device_ms(lambda: ac.reference(h, act))
+    library_ms = library_dev_ms = None
+    if act != "quick_gelu":
+        approximate = "tanh" if act == "gelu_pytorch_tanh" else "none"
+        library_ms = cuda_time_ms(lambda: F.gelu(h, approximate=approximate))
+        library_dev_ms = device_ms(lambda: F.gelu(h, approximate=approximate))
+    nbytes = 2.0 * h.numel() * h.element_size()
+    bms, by = bound_ms(0.0, nbytes, PEAK_F32_FLOPS)
+    case = {"case": name, "shape": [m, n], "act": act, "dtype": str(dtype).replace("torch.", ""),
+            "max_ulps": max_ulps, "bit_equal": bit_equal, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "bound_ms": bms, "bound_by": by,
+            "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms}
+    print(f"[activation] {json.dumps(case)}")
+    return case
+
+
 def attention_cases() -> list[tuple[str, dict]]:
     import torch
 
@@ -933,6 +1002,23 @@ def layernorm_cases() -> list[tuple[str, dict]]:
     ]
 
 
+def activation_cases() -> list[tuple[str, dict]]:
+    import torch
+
+    bf16 = torch.bfloat16
+    # fc1's output at the benchmark cells' batches: ViT-L b32 at 577 tokens,
+    # CLIP text b128 at 77, So400m b32 at 729, SigLIP text b128 at 64; ViT-H
+    # b32 at 257 (erf GELU); a ragged f32 one
+    return [
+        ("clip-l vision b32", dict(m=32 * 577, n=4096, act="quick_gelu", dtype=bf16)),
+        ("clip text b128", dict(m=128 * 77, n=3072, act="quick_gelu", dtype=bf16)),
+        ("siglip vision b32", dict(m=32 * 729, n=4304, act="gelu_pytorch_tanh", dtype=bf16)),
+        ("siglip text b128", dict(m=128 * 64, n=4304, act="gelu_pytorch_tanh", dtype=bf16)),
+        ("vit-h b32", dict(m=32 * 257, n=5120, act="gelu", dtype=bf16)),
+        ("f32 ragged", dict(m=77, n=3071, act="quick_gelu", dtype=torch.float32)),
+    ]
+
+
 def preprocess_cases() -> list[tuple[str, dict]]:
     cases = [(f"OpenAI-CLIP-L shortest_edge {h}x{w}->336", dict(h=h, w=w, b=64))
              for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
@@ -969,6 +1055,7 @@ def maxsim_cases() -> list[tuple[str, dict]]:
 
 # --cases names: (case list, the function that runs one case, its print tag)
 CASE_SETS = {
+    "activation": (activation_cases, "_activation_case", "activation"),
     "preprocess": (preprocess_cases, "_preprocess_case", "preprocess"),
     "maxsim": (maxsim_cases, "_maxsim_case", "maxsim"),
     "attention": (attention_cases, "_attention_case", "attention"),
@@ -1017,6 +1104,7 @@ def phase_kernels() -> list[dict]:
     prologue = [_prologue_case(name, **kw, rng=rng) for name, kw in prologue_cases()]
     attn_qkv = [_attention_qkv_case(name, **kw, rng=rng) for name, kw in attention_qkv_cases()]
     ln = [_layer_norm_case(name, **kw, rng=rng) for name, kw in layernorm_cases()]
+    act = [_activation_case(name, **kw, rng=rng) for name, kw in activation_cases()]
     root = "multimodal_embedding_tpu_torch/csrc"
     # the f32 bodies are kernels of their own (flash_f32_kernel, tf32x3_kernel)
     # with their own launch counts: their cases and headlines apart
@@ -1051,6 +1139,9 @@ def phase_kernels() -> list[dict]:
         {"name": "fused_layer_norm", "route": "cuda", "source": f"{root}/layernorm.cu",
          "replaces": "multimodal_embedding_tpu/ops/layernorm_pallas.py:38",
          "path": "none (no path in the JAX package)", **_headline(ln[0]), "cases": ln},
+        {"name": "mlp_activation", "route": "cuda", "source": f"{root}/activation.cu",
+         "replaces": "XLA's fusion of multimodal_embedding_tpu/models/layers.py:425 (no Pallas kernel)",
+         **_headline(act[0]), "cases": act},
     ]
 
 
@@ -1159,8 +1250,11 @@ def phase_main_path(kernels: list[dict]) -> None:
     # xla layer ran one fused_attention, and two prologues (24 x 2 per image
     # batch, 12 x 2 per text batch)
     layer_runs = clip_counts["fused_attention"]
+    # one MLP activation an encoder layer on the xla path; the fused path's
+    # is in the prologue's epilogue
+    require(clip_counts["mlp_activation"] == layer_runs, f"xla path launches {clip_counts}")
     require(fused_counts["fused_attention_qkv"] == layer_runs and fused_counts["fused_attention"] == 0
-            and fused_counts["fused_res_norm_matmul"] == 2 * layer_runs,
+            and fused_counts["fused_res_norm_matmul"] == 2 * layer_runs and fused_counts["mlp_activation"] == 0,
             f"fused path launches {fused_counts}, want {layer_runs} encoder layers")
     print(f"[main] OpenAI-CLIP-L QPS: --layer-impl xla {float(clip_row['QPS'])}, "
           f"--layer-impl fused {float(fused_row['QPS'])} (same script run); fused launches "
@@ -1181,18 +1275,22 @@ def phase_main_path(kernels: list[dict]) -> None:
         require(r["in_use_before_load"] <= base + (256 << 20),
                 f"{r['model']}: {r['in_use_before_load']} bytes in use as it began to load, {base} before the first")
     jina = others[-1]["counts"]
-    require(jina["fused_attention"] == 0, f"Jina-CLIP-v1 launched the attention kernel: {jina}")
+    require(jina["fused_attention"] == 0 and jina["mlp_activation"] == 0,
+            f"Jina-CLIP-v1 launched the attention or MLP activation kernel: {jina}")
     print("[main] other models: " + "; ".join(
         f"{r['model']} QPS={float(r['row']['QPS'])} peak_memory_GB={r['peak_bytes'] / 1e9:.3f} "
-        f"attention={r['counts']['fused_attention']} preprocess={r['counts']['preprocess']}" for r in others))
+        f"attention={r['counts']['fused_attention']} preprocess={r['counts']['preprocess']} "
+        f"mlp_activation={r['counts']['mlp_activation']}" for r in others))
     paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts,
              **{r["model"]: r["counts"] for r in others}}
     for k in kernels:
         # each kernel's launches on the path that runs it: ColPali for
         # attention, preprocess and MaxSim, the fused CLIP-L path for the
-        # prologue and stacked-QKV attention; no path runs fused_layer_norm (0)
-        k["launches"] = (fused_counts if k["name"] in ("fused_res_norm_matmul", "fused_attention_qkv",
-                                                       "fused_layer_norm") else counts)[k["name"]]
+        # prologue and stacked-QKV attention, CLIP-L for the MLP activation;
+        # no path runs fused_layer_norm (0)
+        path = (fused_counts if k["name"] in ("fused_res_norm_matmul", "fused_attention_qkv", "fused_layer_norm")
+                else clip_counts if k["name"] == "mlp_activation" else counts)
+        k["launches"] = path[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     torch.cuda.empty_cache()
 
@@ -2571,8 +2669,9 @@ def phase_parallel(kernels: list[dict]) -> None:
         tp, dp, sp = rep["tp2 clip-l"], rep["dp2 clip-l"], rep["sp2 colpali"]
         # a) TP: each rank's 8 of 16 vision heads, 6 of 12 text heads
         want_attn = 24 * tp["calls"]["image"] + 12 * tp["calls"]["text"]
-        require(tp["counts"]["fused_attention"] == want_attn and tp["counts"]["preprocess"] > 0,
-                f"rank {rep['rank']} tp launches {tp['counts']}, want {want_attn} attention")
+        require(tp["counts"]["fused_attention"] == want_attn and tp["counts"]["preprocess"] > 0
+                and tp["counts"]["mlp_activation"] == want_attn,
+                f"rank {rep['rank']} tp launches {tp['counts']}, want {want_attn} attention and MLP activations")
         require([tuple(s) for s in tp["q_shapes"]] == [(32, 577, 512), (128, 77, 384)],
                 f"rank {rep['rank']} tp attention shapes {tp['q_shapes']}")
         require(min(tp["cosine_min"].values()) >= TP_COSINE_MIN, f"tp cosine {tp['cosine_min']}")
@@ -3087,7 +3186,8 @@ def phase_f32_paths(kernels: list[dict]) -> None:
 # per-image cosine of entry()'s bf16 kernel path against the plain path on the
 # same weights in f32: phase 5's CLIP-L CLS embeddings read >= 0.99993
 ENTRY_COSINE_MIN = 0.9999
-ENTRY_LAUNCHES = {"preprocess": 1, "fused_attention": 24}  # a call: one preprocess, one a ViT-L layer
+# a call: one preprocess, one attention and one MLP activation a ViT-L layer
+ENTRY_LAUNCHES = {"preprocess": 1, "fused_attention": 24, "mlp_activation": 24}
 
 
 def phase_entry(kernels: list[dict]) -> None:

@@ -21,6 +21,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..ops.activation_cuda import mlp_activation
+
 # --- ops --------------------------------------------------------------------
 
 
@@ -76,17 +78,6 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     applied in f32, one rounding to x's dtype (``F.layer_norm`` computes in
     f32 for bf16 inputs)."""
     return torch.nn.functional.layer_norm(x, (x.shape[-1],), scale, bias, eps)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-ACTIVATIONS = {
-    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none"),
-    "quick_gelu": quick_gelu,
-    "gelu_pytorch_tanh": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
-}
 
 
 # Tower self-attention implementation:
@@ -320,9 +311,9 @@ class MLP(nn.Module):
         self.fc2 = Linear(mlp_dim, dim, gen=gen, device=device, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.fc1(x)
-        h = ACTIVATIONS[self.act](h.float()).to(x.dtype)
-        return self.fc2(h)
+        # the activation in f32, rounded once to x's dtype: one kernel launch
+        # on the card, under tensor parallelism on this rank's fc1 columns
+        return self.fc2(mlp_activation(self.fc1(x), self.act))
 
 
 class EncoderLayer(nn.Module):

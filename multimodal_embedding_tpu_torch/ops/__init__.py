@@ -7,7 +7,7 @@ from ..utils.profiling import KERNELS
 # apart from the bf16 ones, the prologue's row pass alone apart from the
 # whole prologue.
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
-               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows")
+               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation")
 
 
 def launch_counts() -> dict[str, int]:

@@ -35,15 +35,10 @@ import torch
 
 from ..utils.profiling import KERNELS
 from . import build
+from .activation_cuda import ACT_CODES, ACTIVATIONS  # f32 in, f32 out; the JAX module's _ACTS
 
 NORMS = ("ln", "rms_gemma")
-# f32 in, f32 out; the JAX module's _ACTS (and models/layers.py's ACTIVATIONS)
-ACTS = {
-    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="none"),
-    "quick_gelu": lambda x: x * torch.sigmoid(1.702 * x),
-    "gelu_pytorch_tanh": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
-}
-_ACT_CODES = {None: 0, "gelu": 1, "quick_gelu": 2, "gelu_pytorch_tanh": 3}
+_ACT_CODES = {None: 0, **ACT_CODES}
 
 _c = ctypes
 _ARGTYPES = {
@@ -92,7 +87,7 @@ def reference_product(h, w, b, *, act: str | None = None):
     if b is not None:
         y = y + b.float()
     if act is not None:
-        y = ACTS[act](y.to(h.dtype).float())
+        y = ACTIVATIONS[act](y.to(h.dtype).float())
     return y.to(h.dtype)
 
 
@@ -118,7 +113,7 @@ def _check_rows(x, delta, gamma, beta, norm):
 def _check(x, delta, gamma, beta, w, b, norm, act):
     _check_rows(x, delta, gamma, beta, norm)
     if act not in _ACT_CODES:
-        raise ValueError(f"act must be None or one of {tuple(ACTS)}, not {act!r}")
+        raise ValueError(f"act must be None or one of {tuple(ACTIVATIONS)}, not {act!r}")
     d = x.shape[-1]
     if w.dim() != 2 or w.shape[0] != d:
         raise ValueError(f"w must be [D, N] with D = {d}, not {tuple(w.shape)}")

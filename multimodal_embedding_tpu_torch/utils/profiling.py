@@ -28,7 +28,8 @@ The spans, by name (each a range ``mme.<name>``):
 - ``encode.text_batch``: one text batch (``_text_batch``);
 - ``kernel.<kernel>``: a kernel wrapper's launch (``fused_attention``,
   ``fused_attention_qkv``, ``maxsim``, ``preprocess``,
-  ``fused_res_norm_matmul``, ``fused_layer_norm``), on :data:`KERNELS`.
+  ``fused_res_norm_matmul``, ``fused_layer_norm``, ``mlp_activation``), on
+  :data:`KERNELS`.
 
 The engine's counts: ``encode.image_rows`` and ``encode.image_pad_rows``
 (rows the vision tower ran and the padding among them),

@@ -18,8 +18,11 @@ f32; the prologue's row pass alone: x_new bit-equal and h within
 max|d|/max|plain| 1e-5 in f32 and 1e-2 in bf16 of the plain row pass in the
 same dtype; the prologue's and LayerNorm's forwards equal with and without
 the autograd Function, and LayerNorm on misaligned scale and bias views equal
-to aligned copies; stacked-QKV attention bit-equal to the attention kernel on
-contiguous copies of the three slices. The decoders: f32-output products of
+to aligned copies; the MLP activation within one ulp (two in f32) of the plain
+version in the same dtype and bit-equal on at least 99.9% of the elements
+(every bf16 bit pattern; 10^7 random f32 and f16 values), NaN where it is NaN;
+stacked-QKV attention bit-equal to the attention kernel on contiguous copies of
+the three slices. The decoders: f32-output products of
 bf16 operands within max|d|/max|plain| 1e-5 of the product of f32 copies
 (their grads within 1e-2 of autograd of that product), and
 the debug Qwen3 and Gemma in f32 on the card (prefill through the attention
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 from multimodal_embedding_tpu_torch.ops import (
+    activation_cuda,
     attention_cuda,
     fused_ln_matmul_cuda,
     launch_counts,
@@ -664,3 +668,121 @@ def test_decoder_generation_on_the_card_matches_the_cpu(dev, arch):
     assert float((got.cpu()[valid] - want[valid]).abs().max()) <= 1e-4
     toks, _ = generate(card, ids.to(dev), mask.to(dev), 8, greedy=True)
     assert torch.equal(toks.cpu(), generate(cpu, ids, mask, 8, greedy=True)[0])
+
+
+# --- the towers' MLP activation ------------------------------------------------
+
+ACTS = ("gelu", "quick_gelu", "gelu_pytorch_tanh")
+
+
+def _ulps(got, want):
+    """Distance in units in the last place between two tensors of one float
+    dtype, element by element (+0 and -0 the same point)."""
+    narrow = got.element_size() == 2
+    bits, mag = (torch.int16, 0x7FFF) if narrow else (torch.int32, 0x7FFFFFFF)
+
+    def ordered(t):
+        b = t.view(bits).to(torch.int64)
+        return torch.where(b < 0, -(b & mag), b & mag)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _against_plain(h, act, max_ulps, min_equal):
+    """The kernel on ``h`` (one launch) against the plain version: NaN where
+    it is NaN, elsewhere within ``max_ulps`` and bit-equal on at least
+    ``min_equal`` of the elements."""
+    before = _count("mlp_activation")
+    got = activation_cuda.mlp_activation(h, act)
+    torch.cuda.synchronize()
+    assert _count("mlp_activation") == before + 1
+    want = activation_cuda.reference(h, act)
+    assert got.dtype == h.dtype and got.shape == h.shape
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    d = _ulps(got, want)[~nan]
+    assert int(d.max()) <= max_ulps
+    assert float((d == 0).double().mean()) >= min_equal
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_activation_kernel_on_every_bf16_value(dev, act):
+    """All 65,536 bf16 bit patterns: finite values, both infinities, NaNs
+    (NaN in gives NaN out); at most one bf16 ulp from the plain version and
+    bit-equal on at least 99.9%."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+    _against_plain(x, act, max_ulps=1, min_equal=0.999)
+    assert bool(activation_cuda.mlp_activation(x, act)[x.isnan()].isnan().all())
+
+
+@pytest.mark.parametrize("dtype,max_ulps", [(torch.float32, 2), (torch.float16, 1)], ids=str)
+@pytest.mark.parametrize("act", ACTS)
+def test_activation_kernel_on_random_f32_and_f16(dev, act, dtype, max_ulps):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn(10_000_000, generator=gen, device=dev) * 3).to(dtype)
+    _against_plain(x, act, max_ulps=max_ulps, min_equal=0.999)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", [(1,), (7,), (9,), (3, 77, 13), (8 * 1024 * 3 + 5,), (5, 8 * 1024 * 4 + 3)])
+def test_activation_kernel_on_ragged_sizes(dev, dtype, shape):
+    """Element counts that are not a multiple of a vector, a partial tile
+    after whole ones, and tensors smaller than one vector."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    x = (torch.randn(shape, generator=gen, device=dev) * 3).to(dtype)
+    _against_plain(x, "quick_gelu", max_ulps=1 if dtype == torch.bfloat16 else 2, min_equal=0.0)
+
+
+def test_activation_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(64, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        activation_cuda.mlp_activation(x.t(), "quick_gelu")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        activation_cuda.mlp_activation(x.reshape(-1)[1:], "quick_gelu")
+    with pytest.raises(ValueError, match="act must be one of"):
+        activation_cuda.mlp_activation(x, "relu")
+    with pytest.raises(TypeError):
+        activation_cuda.mlp_activation(x.to(torch.float64), "gelu")
+
+
+@pytest.mark.parametrize("dim,mlp_dim,act,t", [(1024, 4096, "quick_gelu", 577), (1152, 4304, "gelu_pytorch_tanh", 729)],
+                         ids=["clip-l", "siglip"])
+def test_tower_mlp_launches_the_kernel_once_a_call(dev, dim, mlp_dim, act, t):
+    """A CLIP-L and a SigLIP-400M vision MLP in bf16: one launch a call, and
+    the plain MLP's output (the activation bit-equal on at least 99.9%)."""
+    from multimodal_embedding_tpu_torch.models.layers import MLP
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mlp = MLP(dim, mlp_dim, act, gen=gen, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(2, t, dim, generator=gen, device=dev).to(torch.bfloat16)
+    before = _count("mlp_activation")
+    with torch.no_grad():
+        for _ in range(3):
+            y = mlp(x)
+        torch.cuda.synchronize()
+        assert _count("mlp_activation") == before + 3
+        h = mlp.fc1(x)
+        want_h = activation_cuda.reference(h, act)
+        got_h = activation_cuda.mlp_activation(h, act)
+        plain = mlp.fc2(want_h)
+    assert float((got_h == want_h).double().mean()) >= 0.999
+    assert y.dtype == torch.bfloat16 and _rel(y, plain.float()) <= 1e-2
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_activation_gradient_recomputes_through_plain_version(dev, act):
+    """With an input that needs a gradient the call goes through the autograd
+    Function: the same forward as the inference launch, and the gradient of
+    the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    h0 = torch.randn(33, 520, generator=gen, device=dev) * 3
+    g = torch.randn(33, 520, generator=gen, device=dev)
+    with torch.no_grad():
+        plain_fwd = activation_cuda.mlp_activation(h0, act)
+    h = h0.clone().requires_grad_()
+    y = activation_cuda.mlp_activation(h, act)
+    assert y.requires_grad and torch.equal(y.detach(), plain_fwd)
+    y.backward(g)
+    href = h0.clone().requires_grad_()
+    activation_cuda.reference(href, act).backward(g)
+    assert torch.equal(h.grad, href.grad)

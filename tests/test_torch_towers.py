@@ -20,6 +20,7 @@ from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.models.params import params_from_jax
 from multimodal_embedding_tpu_torch.models.towers import DualEncoder
 from multimodal_embedding_tpu_torch.models.zoo import debug_dual_config
+from multimodal_embedding_tpu_torch.ops.activation_cuda import ACTIVATIONS
 
 ATOL = 1e-4
 
@@ -139,7 +140,7 @@ def test_text_tower_matches_jax(impl, eos_rule):
 def test_activations_and_norms_match_jax(act):
     rng = np.random.default_rng(4)
     x = rng.standard_normal((4, 32)).astype(np.float32) * 3
-    np.testing.assert_allclose(tlayers.ACTIVATIONS[act](torch.from_numpy(x)).numpy(),
+    np.testing.assert_allclose(ACTIVATIONS[act](torch.from_numpy(x)).numpy(),
                                np.asarray(jlayers.ACTIVATIONS[act](jnp.asarray(x))), atol=1e-6, rtol=1e-6)
     scale, bias = rng.standard_normal(32).astype(np.float32), rng.standard_normal(32).astype(np.float32)
     np.testing.assert_allclose(
