@@ -95,6 +95,25 @@ def full_colpali_config():
     )
 
 
+def full_colpali_deepseek_config():
+    """ColPali-v1.3's SigLIP-So400m/14-448 tower, projector and 128-d head
+    around Kimi-VL-A3B-Instruct's language model
+    (huggingface.co/moonshotai/Kimi-VL-A3B-Instruct ``config.json``
+    ``text_config``): a DeepSeek-V3 decoder of 27 layers at width 2048, the
+    first dense (SwiGLU 11264), then 64 routed experts of width 1408, 6 a
+    token, and 2 shared; MLA with a 512 latent, 16 heads of 128 + 64 (q, k)
+    and 128 (v), rope theta 800000; vocabulary 163840."""
+    from .colpali import ColPaliConfig
+    from .deepseek import DeepseekConfig
+
+    base = full_colpali_config()
+    lm = DeepseekConfig(vocab_size=163840, dim=2048, layers=27, heads=16, mlp_dim=11264, moe_dim=1408, n_experts=64,
+                        top_k=6, n_shared=2, first_dense=1, kv_rank=512, qk_nope_dim=128, qk_rope_dim=64, v_dim=128,
+                        routed_scale=2.446, norm_topk=True, rope_theta=800000.0, rms_eps=1e-5)
+    return ColPaliConfig(vision=base.vision, gemma=lm, embedding_dim=base.embedding_dim,
+                         image_token_id=163605)  # Kimi-VL's media placeholder id
+
+
 def full_jina_config():
     """jinaai/jina-clip-v1: EVA02-B/16 + JinaBERT-base."""
     from .jina import Eva02Config, JinaBertConfig, JinaClipConfig
@@ -102,14 +121,43 @@ def full_jina_config():
     return JinaClipConfig(vision=Eva02Config(), text=JinaBertConfig())
 
 
+COLPALI_IMAGE_SUFFIX = (2, 10, 11, 12, 13, 14)  # the arch ColPalis' 6-token image prompt suffix
+COLPALI_AUGMENTATION = 10  # ColPali's query augmentation tokens
+
+
+def colpali_word_tokenizer(vocab_size: int):
+    """ColPali's query prompt (``colpali_processing.process_queries_ids``:
+    ``<bos> + "Query: " + text + <pad> * 10 + "\\n"``, padded to the batch's
+    longest) on the word tokenizer: BOS 1, one id a lower-cased word of
+    "query: " + text (``2 + hash(word) % (vocab - 3)``), ten augmentation
+    tokens of id 0 that are attended (mask 1), the newline as id vocab - 1,
+    then zeros with mask 0 to the longest. No truncation, as the processor's."""
+
+    def tokenize(texts: list[str]):
+        rows = [[1] + [2 + hash(w) % (vocab_size - 3) for w in ("query: " + t).lower().split()]
+                + [0] * COLPALI_AUGMENTATION + [vocab_size - 1] for t in texts]
+        n = max(len(r) for r in rows)
+        ids = np.zeros((len(rows), n), np.int32)
+        mask = np.zeros((len(rows), n), np.int32)
+        for i, r in enumerate(rows):
+            ids[i, : len(r)] = r
+            mask[i, : len(r)] = 1
+        return ids, mask
+
+    return tokenize
+
+
 def arch_tokenizer(info, cfg):
     """The offline word-hash tokenizer of an arch model: ColPali's 32-token
-    prompts, Jina's registry length with its EOS id 3, and each dual
+    prompts (the DeepSeek ColPali: ColPali's query prompt,
+    :func:`colpali_word_tokenizer`), Jina's registry length with its EOS id 3, and each dual
     encoder's text length with the CLIP EOS id 49407. That id is past the end
     of SigLIP's 32000-row table, where the JAX package's gather clamps it to
     the last row: so the id is ``min(49407, vocab - 1)``, the row JAX reads."""
     from .zoo import hash_tokenizer
 
+    if info.type == "colpali" and info.decoder == "deepseek":
+        return colpali_word_tokenizer(cfg.gemma.vocab_size)
     if info.type == "colpali":
         return hash_tokenizer(cfg.gemma.vocab_size, 32, 1)
     if info.type == "jina":
@@ -135,8 +183,8 @@ def load_arch_model(name: str, seed: int = 0, *, device, dtype=torch.bfloat16):
     if info.type == "colpali":
         from .colpali import ColPali
 
-        cfg = full_colpali_config()
-        suffix = np.array([2, 10, 11, 12, 13, 14], np.int32)  # a 6-token prompt suffix
+        cfg = full_colpali_deepseek_config() if info.decoder == "deepseek" else full_colpali_config()
+        suffix = np.array(COLPALI_IMAGE_SUFFIX, np.int32)
         return LoadedModel(
             info=info, cfg=cfg, model=ColPali(cfg, suffix, seed=seed, device=device, dtype=dtype),
             preprocess=info.preprocess, tokenize=arch_tokenizer(info, cfg),

@@ -9,7 +9,11 @@ Counterpart of ``multimodal_embedding_tpu/models/colpali.py``:
   cancels Gemma's sqrt(dim) on the merged embeddings, so image features
   enter the decoder at projector scale; text embeddings carry the scale);
 - language model: Gemma (``gemma.py``) over [image features | prompt suffix]
-  with PaliGemma's inference mask (every token attends to every valid token);
+  with PaliGemma's inference mask (every token attends to every valid token),
+  or, where the configuration's ``gemma`` is a ``DeepseekConfig``, the
+  DeepSeek-V3 decoder of Kimi-VL-A3B (``deepseek.py``) with its own causal
+  mask; that model scales neither its token embeddings nor the image
+  features, so both enter it as they are;
 - retrieval head: a linear to 128 dims per token in f32, L2-normalized per
   token with ``max(norm, 1e-12)``; query pad tokens are zeroed (HF
   ColPaliForRetrieval's ``emb * mask``, COMPAT #8).
@@ -23,11 +27,15 @@ Scoring runs MaxSim without masks: a zero pad vector adds a 0 floor to the
 doc-token max and exactly 0 to the query sum. ``colpali_params_from_hf``
 converts an HF ``ColPaliForRetrieval`` state dict into the JAX package's
 param tree (numpy), which ``load_colpali`` carries into the module.
+:func:`colpali_deepseek_from_hf` loads the DeepSeek variant from HF-layout
+tensors part by part on their own device (its 15.6 B parameters would take
+62 GB as the host f32 tree).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Iterable, Mapping
 
 import numpy as np
 import torch
@@ -35,7 +43,10 @@ from torch import nn
 
 from ..ops.preprocess import SIGLIP_MEAN, SIGLIP_STD, PreprocessConfig
 from ..parallel.sp import gather_tokens, sp_mesh_for
+from ..utils import graphs
+from ..utils.graphs import ShapeGraphs
 from .convert import _encoder_from_hf, _lin, _ln, _patch_w, _t, stack_layers
+from .deepseek import DeepseekConfig, DeepseekLM, layer_from_hf, owned
 from .gemma import Gemma, GemmaConfig
 from .layers import linear
 from .params import load_tree
@@ -46,7 +57,7 @@ from .towers import VisionConfig, VisionTower, seeded_generator
 @dataclass(frozen=True)
 class ColPaliConfig:
     vision: VisionConfig
-    gemma: GemmaConfig
+    gemma: GemmaConfig | DeepseekConfig  # the language model: Gemma, or the DeepSeek decoder
     embedding_dim: int = 128
     image_token_id: int = 256000
 
@@ -75,11 +86,19 @@ class ColPali(nn.Module):
 
         self.vision = VisionTower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.mm_proj = nn.ParameterDict({"w": normal((cfg.vision.dim, cfg.gemma.dim)), "b": zeros(cfg.gemma.dim)})
-        self.gemma = Gemma(cfg.gemma, gen=gen, device=device, dtype=dtype)
+        lm = DeepseekLM if isinstance(cfg.gemma, DeepseekConfig) else Gemma
+        self.gemma = lm(cfg.gemma, gen=gen, device=device, dtype=dtype)
         self.emb_proj = nn.ParameterDict({"w": normal((cfg.gemma.dim, cfg.embedding_dim)),
                                           "b": zeros(cfg.embedding_dim)})
         ids = torch.as_tensor(np.asarray(image_suffix_ids, np.int32), device=device)
         self.register_buffer("image_suffix_ids", ids)
+        # the DeepSeek decoder's caption batches on the card: CUDA graphs
+        self.text_graphs = ShapeGraphs(self.gemma.tally) if isinstance(self.gemma, DeepseekLM) else None
+
+    def _apply(self, fn, *args, **kwargs):
+        if self.text_graphs is not None:
+            self.text_graphs.reset()  # the graphs read the tensors about to move
+        return super()._apply(fn, *args, **kwargs)
 
     def _head(self, hidden: torch.Tensor) -> torch.Tensor:
         """The 128-d head in f32, then per-token L2 normalization."""
@@ -99,9 +118,35 @@ class ColPali(nn.Module):
 
     def text_fwd(self, input_ids: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """input_ids [B, T] -> per-token embeddings [B, T, D] f32, pad tokens
-        exact zeros."""
+        exact zeros. The DeepSeek decoder's batches on the card run as CUDA
+        graphs (``utils/graphs.py``), its routes and expert loads handed to
+        its sink and counts after each replay."""
         if mask is None:
             mask = torch.ones_like(input_ids)
+        if self.text_graphs is None or not graphs.applies(input_ids):
+            return self._text(input_ids, mask)
+        out, routes, loads = self.text_graphs(self._text_routed, input_ids, mask)
+        lm = self.gemma
+        lm.expert_loads = loads if lm.expert_loads is None else lm.expert_loads.add_(loads)
+        if lm.route_sink is not None:
+            lm.route_sink.append(list(routes.unbind(0)))
+        return out
+
+    def _text_routed(self, input_ids: torch.Tensor, mask: torch.Tensor):
+        """(``_text``'s output, the DeepSeek decoder's chosen experts [MoE
+        layers, B*T, k], its expert loads [MoE layers, E]), the last two made
+        apart from the decoder's sink and counts: a forward that changes no
+        state outside its outputs, which a graph can replay."""
+        lm = self.gemma
+        sink, loads = lm.route_sink, lm.expert_loads
+        lm.route_sink, lm.expert_loads = [], None
+        try:
+            out = self._text(input_ids, mask)
+            return out, torch.stack(lm.route_sink[0]), lm.expert_loads
+        finally:
+            lm.route_sink, lm.expert_loads = sink, loads
+
+    def _text(self, input_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         sp = sp_mesh_for(input_ids.shape[1])
         hidden = self.gemma(self.gemma.embed_tokens(input_ids), attn_mask=mask, sp=sp)
         return gather_tokens(self._head(hidden), sp) * mask[:, :, None].float()
@@ -179,6 +224,83 @@ def colpali_from_params(tree, cfg: ColPaliConfig, *, device, dtype=torch.float32
     return load_tree(model, tree, dtype, device=device)
 
 
+VISION_PREFIX = "vlm.model.vision_tower.vision_model"
+LM_PREFIX = "vlm.model.language_model"
+
+
+def _vision_from_hf(sd: Mapping[str, torch.Tensor], cfg: VisionConfig, dtype) -> dict[str, torch.Tensor]:
+    """The headless SigLIP tower's HF tensors present in ``sd`` -> this
+    module's ``vision.*`` names, on their own device (``_encoder_from_hf``'s
+    mapping, in torch)."""
+    out = {}
+    for key, x in sd.items():
+        if not key.startswith(VISION_PREFIX + "."):
+            continue
+        name = key[len(VISION_PREFIX) + 1 :]
+        if name == "embeddings.patch_embedding.weight":  # [D, C, p, p] -> [p*p*C, D]
+            out["patch.w"] = x.permute(2, 3, 1, 0).reshape(-1, x.shape[0])
+        elif name == "embeddings.patch_embedding.bias":
+            out["patch.b"] = x
+        elif name == "embeddings.position_embedding.weight":
+            out["pos"] = x
+        elif name.startswith("post_layernorm."):
+            out["post_ln." + ("scale" if name.endswith("weight") else "bias")] = x
+        elif name.startswith("encoder.layers."):
+            _, _, i, *rest = name.split(".")
+            mod, leaf = ".".join(rest[:-1]), rest[-1]
+            norms = {"layer_norm1": "ln1", "layer_norm2": "ln2"}
+            if mod in norms:
+                out[f"encoder.layers.{i}.{norms[mod]}." + ("scale" if leaf == "weight" else "bias")] = x
+            else:
+                mod = {"self_attn.q_proj": "attn.q", "self_attn.k_proj": "attn.k", "self_attn.v_proj": "attn.v",
+                       "self_attn.out_proj": "attn.o", "mlp.fc1": "mlp.fc1", "mlp.fc2": "mlp.fc2"}[mod]
+                out[f"encoder.layers.{i}.{mod}." + ("w" if leaf == "weight" else "b")] = x.T if leaf == "weight" else x
+        else:
+            raise KeyError(f"unknown vision tensor {key}")
+    return {f"vision.{k}": owned(v, dtype) for k, v in out.items()}
+
+
+def colpali_deepseek_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: ColPaliConfig, image_suffix_ids, *,
+                             dtype) -> ColPali:
+    """A ``ColPali`` with the DeepSeek decoder from HF-layout tensors
+    (``vlm.model.vision_tower.vision_model.*``,
+    ``vlm.model.multi_modal_projector.linear.*``,
+    ``vlm.model.language_model.{embed_tokens,norm,layers.<i>}.*`` in
+    ``DeepseekV3Model``'s names, ``embedding_proj_layer.*``), converted on
+    their own device part by part: each part a mapping that holds whole
+    layers, dropped by the caller once converted, so the model's weights
+    and one part are all there is at once. Every weight must be filled."""
+    model = ColPali(cfg, image_suffix_ids, device="meta", dtype=dtype)
+    lm = cfg.gemma
+    device = None
+    for sd in parts:
+        state = _vision_from_hf(sd, cfg.vision, dtype)
+        for key, x in sd.items():
+            device = x.device
+            head, _, leaf = key.rpartition(".")
+            if head in ("vlm.model.multi_modal_projector.linear", "embedding_proj_layer"):
+                name = "mm_proj" if head.startswith("vlm") else "emb_proj"
+                state[f"{name}.w" if leaf == "weight" else f"{name}.b"] = x.T if leaf == "weight" else x
+            elif key == f"{LM_PREFIX}.embed_tokens.weight":
+                state["gemma.embed"] = x
+            elif key == f"{LM_PREFIX}.norm.weight":
+                state["gemma.final_norm"] = x
+        state = {k: owned(v, dtype) if k.startswith(("mm_", "emb_", "gemma.embed", "gemma.final")) else v
+                 for k, v in state.items()}
+        layers = {int(k[len(LM_PREFIX) + 8 :].split(".")[0]) for k in sd if k.startswith(f"{LM_PREFIX}.layers.")}
+        for i in sorted(layers):
+            state.update({f"gemma.{k}": v for k, v in layer_from_hf(sd, LM_PREFIX, lm, i, dtype).items()})
+        unexpected = model.load_state_dict(state, strict=False, assign=True).unexpected_keys
+        if unexpected:
+            raise KeyError(f"tensors with no place in the model: {unexpected[:5]}")
+    ids = torch.as_tensor(np.asarray(image_suffix_ids, np.int32), device=device)
+    model.load_state_dict({"image_suffix_ids": ids}, strict=False, assign=True)
+    left = [n for n, t in (*model.named_parameters(), *model.named_buffers()) if t.is_meta]
+    if left:
+        raise ValueError(f"ColPali: not filled by the HF tensors: {left[:5]}")
+    return model
+
+
 def load_colpali(info: ModelInfo, *, device, dtype=torch.bfloat16, checkpoint_dir: str | None = None):
     """Load an HF ColPali checkpoint (the HF cache or ``checkpoint_dir``)."""
     from transformers import AutoProcessor, ColPaliForRetrieval
@@ -201,30 +323,43 @@ def load_colpali(info: ModelInfo, *, device, dtype=torch.bfloat16, checkpoint_di
     )
 
 
-def debug_colpali_config(image_size: int = 28) -> ColPaliConfig:
+def debug_colpali_config(image_size: int = 28, decoder: str = "gemma") -> ColPaliConfig:
+    """The debug ColPali; ``decoder`` "deepseek": its language model the
+    DeepSeek decoder at width 64, one dense layer then 2 MoE layers of 8
+    experts, top-2, 2 shared."""
+    if decoder == "deepseek":
+        lm = DeepseekConfig(vocab_size=512, dim=64, layers=3, heads=4, mlp_dim=96, moe_dim=32, n_experts=8, top_k=2,
+                            n_shared=2, kv_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_dim=16, rope_theta=10000.0)
+    else:
+        lm = GemmaConfig(vocab_size=512, dim=48, layers=2, heads=4, kv_heads=1, head_dim=16, mlp_dim=96)
     return ColPaliConfig(
         vision=VisionConfig(
             image_size=image_size, patch_size=14, dim=32, layers=2, heads=4, mlp_dim=64,
             proj_dim=None, style="siglip", act="gelu_pytorch_tanh", ln_eps=1e-6, use_head=False,
         ),
-        gemma=GemmaConfig(vocab_size=512, dim=48, layers=2, heads=4, kv_heads=1, head_dim=16, mlp_dim=96),
+        gemma=lm,
         embedding_dim=16,
         image_token_id=500,
     )
 
 
 def load_debug_colpali(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32):
-    """Random-init small ColPali (28 px images, 4 patches) for offline runs."""
+    """Random-init small ColPali (28 px images, 4 patches) for offline runs;
+    the DeepSeek variant (``info.decoder``) queries through ColPali's prompt
+    on the word tokenizer."""
+    from .arch import colpali_word_tokenizer
     from .zoo import LoadedModel, hash_tokenizer
 
-    cfg = debug_colpali_config()
+    cfg = debug_colpali_config(decoder=info.decoder)
     pre = PreprocessConfig(image_size=cfg.vision.image_size, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD)
+    vocab = cfg.gemma.vocab_size
+    tokenize = colpali_word_tokenizer(vocab) if info.decoder == "deepseek" else hash_tokenizer(vocab, 16, vocab - 1)
     return LoadedModel(
         info=info,
         cfg=cfg,
         model=ColPali(cfg, np.array([1, 7, 8, 9], np.int32), seed=seed, device=device, dtype=dtype),
         preprocess=pre,
-        tokenize=hash_tokenizer(cfg.gemma.vocab_size, 16, cfg.gemma.vocab_size - 1),
+        tokenize=tokenize,
         multi_vector=True,
         weights_provenance="debug-random",
     )

@@ -35,6 +35,7 @@ class ModelInfo:
     trust_remote_code: bool = False
     preprocess: PreprocessConfig | None = None
     text_max_len: int = 77
+    decoder: str = "gemma"  # a colpali model's language model: "gemma" or "deepseek" (models/deepseek.py)
 
 
 MODEL_REGISTRY: list[ModelInfo] = [
@@ -111,6 +112,21 @@ EXTRA_MODELS: list[ModelInfo] = [
             image_size=224, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD
         ),
         text_max_len=64,
+    ),
+    # Kimi-VL-A3B-Instruct's language model (a DeepSeek-V3 decoder: MLA, 64
+    # routed experts of which 6 a token, 2 shared) in place of ColPali-v1.3's
+    # Gemma-2B, behind ColPali-v1.3's vision tower, projector and head; random
+    # weights only (no such checkpoint is published)
+    ModelInfo(
+        name="ColPali-KimiVL-A3B",
+        hf_id="moonshotai/Kimi-VL-A3B-Instruct",
+        type="colpali",
+        batch_size=8,
+        preprocess=PreprocessConfig(
+            image_size=448, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD
+        ),
+        text_max_len=64,
+        decoder="deepseek",
     ),
 ]
 

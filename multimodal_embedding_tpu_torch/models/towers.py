@@ -25,6 +25,8 @@ from typing import Literal
 import torch
 from torch import nn
 
+from ..utils import graphs
+from ..utils.graphs import ShapeGraphs
 from .layers import MLP, Encoder, LayerNorm, Linear, MultiHeadAttention
 
 Style = Literal["clip", "siglip"]
@@ -208,9 +210,18 @@ class DualEncoder(nn.Module):
         gen = seeded_generator(seed, device)
         self.vision = VisionTower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.text = TextTower(cfg.text, gen=gen, device=device, dtype=dtype)
+        self.text_graphs = ShapeGraphs()
+
+    def _apply(self, fn, *args, **kwargs):
+        self.text_graphs.reset()  # the graphs read the tensors about to move
+        return super()._apply(fn, *args, **kwargs)
 
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         return self.vision(pixels)
 
     def encode_text(self, input_ids: torch.Tensor, attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """The text tower; its batches on the card run as CUDA graphs
+        (``utils/graphs.py``)."""
+        if graphs.applies(input_ids):
+            return self.text_graphs(self.text, input_ids, attn_mask)
         return self.text(input_ids, attn_mask)

@@ -5,9 +5,11 @@ from ..utils.profiling import KERNELS
 
 # Every launch counts under one name: the f32 bodies of attention and MaxSim
 # apart from the bf16 ones, the prologue's row pass alone apart from the
-# whole prologue.
+# whole prologue; ``grouped_mm`` is the MoE layers' grouped expert product
+# (``ops/moe.py``, ``torch._grouped_mm``: a library kernel, counted beside
+# the port's own).
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
-               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation")
+               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm")
 
 
 def launch_counts() -> dict[str, int]:

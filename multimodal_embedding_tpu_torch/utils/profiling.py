@@ -4,8 +4,9 @@ traces of the device.
 Counterpart of ``multimodal_embedding_tpu/utils/profiling.py``. Every span
 and counter of the port lives here, in a :class:`Tally`: one process-wide
 tally for the kernel wrappers (:data:`KERNELS`, its counts the launches that
-``ops.launch_counts()`` reads) and one per ``EncodingEngine``
-(``engine.tally``).
+``ops.launch_counts()`` reads), one per ``EncodingEngine``
+(``engine.tally``) and one per DeepSeek decoder (``models/deepseek.py``,
+``DeepseekLM.tally``).
 
 - A span (:meth:`Tally.span`) is on exactly while a ``torch.profiler``
   records: it then opens a profiler range named ``mme.<name>`` (a
@@ -29,13 +30,26 @@ The spans, by name (each a range ``mme.<name>``):
 - ``kernel.<kernel>``: a kernel wrapper's launch (``fused_attention``,
   ``fused_attention_qkv``, ``maxsim``, ``preprocess``,
   ``fused_res_norm_matmul``, ``fused_layer_norm``, ``mlp_activation``), on
-  :data:`KERNELS`.
+  :data:`KERNELS`;
+- ``moe.route``, ``moe.experts``, ``moe.combine``: a MoE layer's router,
+  top-k, sort and expert row ends; its grouped products and SwiGLU; its
+  weighted combine and shared experts (``ops/moe.py:moe``), on the
+  decoder's tally.
 
 The engine's counts: ``encode.image_rows`` and ``encode.image_pad_rows``
 (rows the vision tower ran and the padding among them),
 ``encode.text_positions`` and ``encode.text_pad_positions`` (rows times
 length the text tower ran, and the zeros of the mask among them); under a
-mesh each rank counts its own rows.
+mesh each rank counts its own rows. The DeepSeek decoder's:
+``moe.routed_rows`` (tokens times top-k, a MoE layer, from shapes). Each
+expert's routed rows a MoE layer are counted on the device instead
+(``DeepseekLM.expert_loads``, one add a layer, no sync) and read by
+``take_expert_loads`` after a barrier. :data:`KERNELS` also counts
+``grouped_mm``, each grouped expert product on the card.
+
+A text batch on the card replays a CUDA graph (``utils/graphs.py``): the
+replay opens none of the forward's spans, and adds again the counts that
+the forward's eager call of the same shape made.
 
 With a directory, :func:`maybe_trace` records CPU and CUDA activity of the
 enclosed region, writes a Chrome trace (view in Perfetto) that carries the
