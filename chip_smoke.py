@@ -444,14 +444,19 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     library_ms = cuda_time_ms(sdpa)
 
     es = q.element_size()
+    wgmma = attention_cuda.uses_wgmma(dtype, dh)
     pairs = float(valid.sum()) * h  # (batch, head, query, key) pairs the function needs
     flops = 4.0 * pairs * dh
     nbytes = es * dh * (2 * b * tq * h + 2 * b * t * kvh) + (b * t if km is not None else 0)
     bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
     case = {"case": name, "shape": [b, h, kvh, t, dh], "queries": tq, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms}
-    if not bf16:
+            "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms,
+            "body": "wgmma" if wgmma else ("mma.sync" if bf16 else "3xtf32")}
+    if bf16:  # SDPA's device time beside the kernel's, the table's yardstick
+        case["library_device_ms"] = device_ms(sdpa)
+        case["bound_pct"] = None if dev_ms is None else 100.0 * bms / dev_ms
+    else:
         case.update(_f32_extras(flops, nbytes, dev_ms, sdpa))
     print(f"[attention] {json.dumps(case)}")
     return case
@@ -853,6 +858,10 @@ def attention_cases() -> list[tuple[str, dict]]:
     return [
         ("vit-l packed", dict(b=64, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
                               layout="packed", full_mask_rows=False)),
+        # the benchmark cells' CLIP-L vision batch of 32 (their caption batch,
+        # SigLIP-400M's vision, MAP head and caption batches follow below)
+        ("vit-l b32 packed", dict(b=32, h=16, kvh=16, t=577, dh=64, dtype=bf16, causal=False, masked=False,
+                                  layout="packed", full_mask_rows=False)),
         ("clip-l text packed causal+mask", dict(b=128, h=12, kvh=12, t=77, dh=64, dtype=bf16, causal=True,
                                                 masked=True, layout="packed", full_mask_rows=False)),
         ("gqa bhtd causal+mask, fully masked rows", dict(b=4, h=8, kvh=2, t=100, dh=64, dtype=bf16, causal=True,
@@ -3186,8 +3195,9 @@ def phase_f32_paths(kernels: list[dict]) -> None:
 # per-image cosine of entry()'s bf16 kernel path against the plain path on the
 # same weights in f32: phase 5's CLIP-L CLS embeddings read >= 0.99993
 ENTRY_COSINE_MIN = 0.9999
-# a call: one preprocess, one attention and one MLP activation a ViT-L layer
-ENTRY_LAUNCHES = {"preprocess": 1, "fused_attention": 24, "mlp_activation": 24}
+# a call: one preprocess, one attention (on the kernel's warpgroup body: Dh
+# 64) and one MLP activation a ViT-L layer
+ENTRY_LAUNCHES = {"preprocess": 1, "fused_attention": 24, "mlp_activation": 24, "fused_attention_wgmma": 24}
 
 
 def phase_entry(kernels: list[dict]) -> None:

@@ -7,9 +7,12 @@ from ..utils.profiling import KERNELS
 # apart from the bf16 ones, the prologue's row pass alone apart from the
 # whole prologue; ``grouped_mm`` is the MoE layers' grouped expert product
 # (``ops/moe.py``, ``torch._grouped_mm``: a library kernel, counted beside
-# the port's own).
+# the port's own). ``fused_attention_wgmma`` counts again each bf16 attention
+# launch (``fused_attention`` or ``fused_attention_qkv``) that ran the
+# warpgroup body (``attention_cuda.uses_wgmma``).
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
-               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm")
+               "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm",
+               "fused_attention_wgmma")
 
 
 def launch_counts() -> dict[str, int]:

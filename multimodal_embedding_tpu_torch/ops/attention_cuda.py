@@ -9,16 +9,28 @@ whole key row, probabilities cast to V's dtype before an f32-accumulated PV,
 the softmax denominator applied after PV, exact zeros for a fully masked row,
 and grouped-query attention with KVH | H.
 
-Where the kernel keeps its logits: in registers, in both dtypes. A block of
-4 warps takes 64 query rows, each warp 16 of them end to end, and sweeps the
-key tiles twice (the row max, then p, its sum and PV with ``mma.sync``), so
-its shared memory holds Q and a K/V ring and does not grow with Tk; any key
-row length is taken. In f32 every product is three TF32 tensor-core products
-of split operands (3xTF32, within about 2^-21 of f32 a product) and p stays
-f32. The f32 kernel serves Workload B's f32 models: ``cli/train_rl.py`` and
-``cli/verify_rl.py`` at their default ``--model-size small``, a
-``--save-base`` base read back by ``--base-params``, and
-``dryrun_multichip``.
+Where the kernel keeps its logits: in registers, in both dtypes. A block
+takes 64 or 128 query rows and sweeps the key tiles twice (the row max, then
+p, its sum and PV), so its shared memory holds Q and K/V rings and does not
+grow with Tk; any key row length is taken. In bf16 the head dim alone picks
+one of two bodies of the one ``flash_kernel`` (:func:`uses_wgmma`, the only
+place the rule lives). Up to :data:`WGMMA_MAX_HEAD_DIM` (CLIP, SigLIP,
+ViT-H, ColPali's SigLIP-448) both products are ``wgmma`` warpgroup
+products, QK^T from shared memory and PV with p in registers, fed by
+``cp.async`` rings of 64-key tiles in the layouts ``wgmma`` reads; a block
+has two warpgroups on 128 rows sharing each tile, or one on 64 where a
+head's rows fit in 64; a launch also counts as ``fused_attention_wgmma``.
+Above it (Qwen3, Gemma, Kimi's MLA) the products are ``mma.sync`` on 32-key
+tiles. ``wgmma`` changes where the products run, not the rounding: f32
+QK^T, p in f32 against the exact row max, rounded to bf16 once, PV in f32.
+Still left: TMA with a producer warp, overlapping one warpgroup's softmax
+with another's products, and one QK^T pass in place of two. Registers and
+spills per template: PERF.md's kernel table. In f32 every product is three
+TF32 tensor-core products of split operands (3xTF32, within about 2^-21 of
+f32 a product) and p stays f32. The f32 kernel serves Workload B's f32
+models: ``cli/train_rl.py`` and ``cli/verify_rl.py`` at their default
+``--model-size small``, a ``--save-base`` base read back by
+``--base-params``, and ``dryrun_multichip``.
 
 :func:`fused_attention` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version
@@ -38,6 +50,10 @@ from . import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 80  # bf16 head dims up to this take the warpgroup body
+
+# the C entry point's body argument
+_BODY_F32, _BODY_MMA, _BODY_WGMMA = 0, 1, 2
 
 _c = ctypes
 _ARGTYPES = (
@@ -82,6 +98,14 @@ def sdpa_reference(q, k, v, km, *, causal: bool, sm_scale: float) -> torch.Tenso
     attn = attn.to(v.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", attn.float(), v.float())
     return out.to(q.dtype)
+
+
+def uses_wgmma(dtype: torch.dtype, dh: int) -> bool:
+    """Whether a launch at head dim ``dh`` runs the kernel's warpgroup
+    (``wgmma``) body: bf16 up to :data:`WGMMA_MAX_HEAD_DIM` (padded to 64 or
+    80). The launch passes this choice to the kernel and counts it, so the
+    two never disagree."""
+    return dtype == torch.bfloat16 and dh <= WGMMA_MAX_HEAD_DIM
 
 
 def _to_bhtd(x: torch.Tensor, nh: int) -> torch.Tensor:
@@ -151,8 +175,12 @@ def _run(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
             raise ValueError(f"key_mask must be [B, Tk] = {(b, tk)} on q's device")
         km32 = km.to(torch.int32).contiguous()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        body = _BODY_F32
+    else:
+        body = _BODY_WGMMA if uses_wgmma(q.dtype, dh) else _BODY_MMA
     code = _attention_fwd()(
-        1 if q.dtype == torch.bfloat16 else 0,
+        body,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if km32 is None else km32.data_ptr(), out.data_ptr(),
         b, h, kvh, tq, tk, dh,
@@ -171,10 +199,17 @@ def _needs_grad(*xs: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+def _count_wgmma(dtype: torch.dtype, dh: int) -> None:
+    """A launch of the warpgroup body also counts as ``fused_attention_wgmma``."""
+    if uses_wgmma(dtype, dh):
+        KERNELS.count("fused_attention_wgmma")
+
+
 def _launch(q, k, v, km, causal, sm_scale, layout, h, kvh) -> torch.Tensor:
     with KERNELS.span("kernel.fused_attention"):
         out = _run(q, k, v, km, causal, sm_scale, layout, h, kvh)
     KERNELS.count("fused_attention_f32" if out.dtype == torch.float32 else "fused_attention")
+    _count_wgmma(q.dtype, q.shape[-1] // h if layout == "packed" else q.shape[-1])
     return out
 
 
@@ -242,6 +277,7 @@ def _launch_qkv(qkv, km, causal, sm_scale, h, kvh) -> torch.Tensor:
     with KERNELS.span("kernel.fused_attention_qkv"):
         out = _run(*_split_qkv(qkv, h, kvh), km, causal, sm_scale, "packed", h, kvh)
     KERNELS.count("fused_attention_qkv")
+    _count_wgmma(qkv.dtype, qkv.shape[-1] // (h + 2 * kvh))
     return out
 
 

@@ -8,7 +8,9 @@ rows. Tolerances: 1e-5 in f32 (summation order), 2e-2 in bf16 (one bf16
 rounding of probabilities and outputs). The port's "xla"/"xla_bf16"
 ``attention_core`` is held against the JAX one. The f32 kernel's arithmetic
 (3xTF32 products, ``tests/torch_tf32.py``) is held against JAX's f32
-reference at small versions of the f32 paths' shapes.
+reference at small versions of the f32 paths' shapes. The rule that sends a
+bf16 launch at Dh <= 80 to the kernel's warpgroup body, and the count that
+follows it, are checked here; the kernel itself only on the card.
 """
 
 import jax
@@ -21,8 +23,11 @@ import torch_tf32
 from multimodal_embedding_tpu.models import layers as jlayers
 from multimodal_embedding_tpu.ops.attention_pallas import _sdpa_reference
 from multimodal_embedding_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
+from multimodal_embedding_tpu_torch import ops
 from multimodal_embedding_tpu_torch.models import layers as tlayers
+from multimodal_embedding_tpu_torch.ops import attention_cuda
 from multimodal_embedding_tpu_torch.ops.attention_cuda import fused_attention
+from multimodal_embedding_tpu_torch.utils.profiling import KERNELS
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -111,6 +116,35 @@ def test_plain_version_is_differentiable():
     (fused_attention(*xs, torch.from_numpy(km), causal=True) ** 2).sum().backward()
     for x, g in zip(xs, jg):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,dh,wgmma", [
+    (torch.bfloat16, 8, True), (torch.bfloat16, 40, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 72, True), (torch.bfloat16, 80, True), (torch.bfloat16, 88, False),
+    (torch.bfloat16, 128, False), (torch.bfloat16, 192, False), (torch.bfloat16, 256, False),
+    (torch.float32, 64, False), (torch.float32, 128, False),
+])
+def test_head_dim_alone_picks_the_warpgroup_body(dtype, dh, wgmma):
+    assert attention_cuda.uses_wgmma(dtype, dh) is wgmma
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [40, 64, 72, 80, 128, 256])
+def test_warpgroup_launches_are_counted_by_head_dim(monkeypatch, dtype, dh):
+    """One launch of each wrapper (the kernel call replaced: no card here):
+    ``fused_attention_wgmma`` counts both at bf16 Dh <= 80 and neither
+    otherwise; the totals count each launch once."""
+    monkeypatch.setattr(KERNELS, "counts", {})
+    monkeypatch.setattr(attention_cuda, "_run", lambda q, *args: q)
+    h = 2
+    attention_cuda._launch(torch.zeros(1, 3, h * dh, dtype=dtype), None, None, None, False, 1.0, "packed", h, h)
+    attention_cuda._launch(torch.zeros(1, h, 3, dh, dtype=dtype), None, None, None, False, 1.0, "bhtd", h, h)
+    attention_cuda._launch_qkv(torch.zeros(1, 3, 3 * h * dh, dtype=dtype), None, False, 1.0, h, h)
+    counts = ops.launch_counts()
+    bf16 = dtype == torch.bfloat16
+    assert counts["fused_attention" if bf16 else "fused_attention_f32"] == 2
+    assert counts["fused_attention_qkv"] == 1
+    assert counts["fused_attention_wgmma"] == (3 if bf16 and dh <= 80 else 0)
 
 
 def test_wrapper_rejects_bad_shapes():

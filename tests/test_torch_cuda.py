@@ -22,7 +22,9 @@ to aligned copies; the MLP activation within one ulp (two in f32) of the plain
 version in the same dtype and bit-equal on at least 99.9% of the elements
 (every bf16 bit pattern; 10^7 random f32 and f16 values), NaN where it is NaN;
 stacked-QKV attention bit-equal to the attention kernel on contiguous copies of
-the three slices. The decoders: f32-output products of
+the three slices; ``fused_attention_wgmma`` counting every bf16 attention
+launch at Dh <= 80 (the kernel's warpgroup body), those of a full-width
+CLIP-L and SigLIP-400M encode too, and none at Dh 128 or 256. The decoders: f32-output products of
 bf16 operands within max|d|/max|plain| 1e-5 of the product of f32 copies
 (their grads within 1e-2 of autograd of that product), and
 the debug Qwen3 and Gemma in f32 on the card (prefill through the attention
@@ -61,32 +63,45 @@ def dev():
     return torch.device("cuda")
 
 
+def _key_mask(dev, b, tk):
+    """Sequences alternately whole and cut to a third."""
+    lengths = np.where(np.arange(b) % 2 == 0, tk, tk // 3)[:, None]
+    return torch.from_numpy((np.arange(tk)[None, :] < lengths).astype(np.int32)).to(dev)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("layout,h,kvh,t,dh,causal,masked", [
-    ("packed", 16, 16, 577, 64, False, False),
-    ("packed", 12, 12, 77, 64, True, True),
-    ("bhtd", 8, 2, 100, 72, True, True),
-    ("bhtd", 4, 1, 1030, 256, True, False),
-    ("packed", 16, 16, 1024, 72, False, False),  # SigLIP-448 in ColPali
-    ("packed", 8, 1, 1030, 256, False, False),  # Gemma over image + suffix tokens
-    ("packed", 8, 1, 32, 256, False, True),  # Gemma text sweep: key mask, not causal
+@pytest.mark.parametrize("layout,h,kvh,t,dh,causal,masked,b", [
+    ("packed", 16, 16, 577, 64, False, False, 2),
+    ("packed", 12, 12, 77, 64, True, True, 2),
+    ("bhtd", 8, 2, 100, 72, True, True, 2),
+    ("bhtd", 4, 1, 1030, 256, True, False, 2),
+    ("packed", 16, 16, 1024, 72, False, False, 2),  # SigLIP-448 in ColPali
+    ("packed", 8, 1, 1030, 256, False, False, 2),  # Gemma over image + suffix tokens
+    ("packed", 8, 1, 32, 256, False, True, 2),  # Gemma text sweep: key mask, not causal
     # T past a 64-row query tile and a 64- or 32-key tile; each padded head
     # dim of the bf16 kernel (40 -> 64, 80, 128, 256)
-    ("packed", 4, 4, 65, 40, False, True),
-    ("bhtd", 4, 2, 33, 80, True, True),
-    ("packed", 4, 4, 65, 128, True, False),
-    ("bhtd", 4, 1, 65, 256, False, True),
-    ("packed", 2, 1, 33, 256, True, True),
+    ("packed", 4, 4, 65, 40, False, True, 2),
+    ("bhtd", 4, 2, 33, 80, True, True, 2),
+    ("packed", 4, 4, 65, 128, True, False, 2),
+    ("bhtd", 4, 1, 65, 256, False, True, 2),
+    ("packed", 2, 1, 33, 256, True, True, 2),
+    # the benchmark cells' own shapes: CLIP-L's and SigLIP-400M's vision
+    # batches of 32, their caption batches of 128 (CLIP causal with a key
+    # mask, SigLIP a key mask alone)
+    ("packed", 16, 16, 577, 64, False, False, 32),
+    ("packed", 16, 16, 729, 72, False, False, 32),
+    ("packed", 12, 12, 77, 64, True, True, 128),
+    ("packed", 16, 16, 64, 72, False, True, 128),
+    # key rows that are no multiple of the warpgroup body's 64-key tile
+    ("bhtd", 4, 2, 129, 72, True, True, 2),
+    ("packed", 4, 4, 65, 80, False, False, 2),
 ])
-def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, causal, masked):
+def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, causal, masked, b):
     rng = np.random.default_rng(0)
-    b = 2
     shapes = ([(b, t, h * dh), (b, t, kvh * dh), (b, t, kvh * dh)] if layout == "packed"
               else [(b, h, t, dh), (b, kvh, t, dh), (b, kvh, t, dh)])
     q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(dev, dtype) for s in shapes)
-    km = None
-    if masked:
-        km = torch.from_numpy((np.arange(t)[None, :] < np.array([[t], [t // 3]])).astype(np.int32)).to(dev)
+    km = _key_mask(dev, b, t) if masked else None
     kw = dict(causal=causal, layout=layout, num_heads=h, num_kv_heads=kvh)
     got = attention_cuda.fused_attention(q, k, v, km, **kw)
     scale = dh ** -0.5
@@ -96,20 +111,23 @@ def test_attention_kernel_matches_plain(dev, dtype, tol, layout, h, kvh, t, dh, 
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("tq,tk,h,dh,masked", [
-    (1, 729, 16, 72, False),  # the SigLIP MAP head: one probe row over 729 keys
-    (1, 65, 4, 80, True),
-    (70, 33, 4, 64, True),  # more query rows than keys, past one 64-row query tile
+@pytest.mark.parametrize("tq,tk,h,dh,masked,b", [
+    (1, 729, 16, 72, False, 2),  # the SigLIP MAP head: one probe row over 729 keys
+    (1, 65, 4, 80, True, 2),
+    (70, 33, 4, 64, True, 2),  # more query rows than keys, past one 64-row query tile
+    (1, 729, 16, 72, False, 32),  # the MAP head over a SigLIP-400M vision batch of 32
+    # key rows that are no multiple of the warpgroup body's 64-key tile
+    (3, 129, 4, 64, True, 2),
+    (100, 65, 4, 72, True, 2),
+    (200, 577, 2, 64, False, 2),
+    (64, 729, 4, 80, True, 2),
 ])
-def test_attention_cross_lengths_match_plain(dev, dtype, tol, tq, tk, h, dh, masked):
+def test_attention_cross_lengths_match_plain(dev, dtype, tol, tq, tk, h, dh, masked, b):
     rng = np.random.default_rng(3)
-    b = 2
     q = torch.from_numpy(rng.standard_normal((b, tq, h * dh), dtype=np.float32)).to(dev, dtype)
     k, v = (torch.from_numpy(rng.standard_normal((b, tk, h * dh), dtype=np.float32)).to(dev, dtype)
             for _ in range(2))
-    km = None
-    if masked:
-        km = torch.from_numpy((np.arange(tk)[None, :] < np.array([[tk], [tk // 3]])).astype(np.int32)).to(dev)
+    km = _key_mask(dev, b, tk) if masked else None
     got = attention_cuda.fused_attention(q, k, v, km, layout="packed", num_heads=h)
     want = attention_cuda._plain(q.float(), k.float(), v.float(), km, False, dh ** -0.5, "packed", h, h)
     assert got.shape == q.shape
@@ -154,6 +172,10 @@ def _assert_bf16_attention_close(got, want):
     ("packed", 4, 4, 77, 64),
     ("bhtd", 4, 2, 100, 72),
     ("packed", 8, 1, 65, 256),
+    # the warpgroup body with one warpgroup a block (rows fit in 64) and with
+    # two over several key tiles
+    ("packed", 4, 4, 64, 72),
+    ("bhtd", 4, 2, 200, 40),
 ])
 def test_attention_bf16_fully_masked_rows_are_exact_zeros(dev, layout, h, kvh, t, dh):
     rng = np.random.default_rng(10)
@@ -172,6 +194,58 @@ def test_attention_bf16_fully_masked_rows_are_exact_zeros(dev, layout, h, kvh, t
     assert bool((o4[2] == 0).all())
     assert bool((o4[0, :, 0] == 0).all())
     _assert_bf16_attention_close(got, want)
+
+
+@pytest.mark.parametrize("dh,body", [(40, 1), (64, 1), (72, 1), (80, 1), (128, 0), (256, 0)])
+def test_the_warpgroup_body_counts_once_a_launch_up_to_dh_80(dev, dh, body):
+    """``fused_attention_wgmma`` moves once a bf16 launch at Dh <= 80 (the
+    warpgroup body), never at Dh 128 and 256 (the mma.sync body) nor in f32;
+    ``fused_attention`` and ``fused_attention_qkv`` stay the totals."""
+    rng = np.random.default_rng(12)
+    h = 4
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.from_numpy(rng.standard_normal((2, 70, h * dh), dtype=np.float32)).to(dev, dtype)
+                   for _ in range(3))
+        qkv = torch.cat([q, k, v], dim=-1)
+        before = launch_counts()
+        attention_cuda.fused_attention(q, k, v, layout="packed", num_heads=h)
+        attention_cuda.fused_attention_qkv(qkv, num_heads=h)
+        after = launch_counts()
+        d = {key: after[key] - before[key] for key in after}
+        bf16 = dtype == torch.bfloat16
+        assert d["fused_attention" if bf16 else "fused_attention_f32"] == 1
+        assert d["fused_attention_qkv"] == 1
+        assert d["fused_attention_wgmma"] == (2 * body if bf16 else 0)
+
+
+@pytest.mark.parametrize("name", ["OpenAI-CLIP-L", "SigLIP-400M"])
+def test_every_attention_launch_of_an_encode_runs_the_warpgroup_body(dev, name):
+    """A dual encoder at full width (Dh 64; 72 with SigLIP's MAP head): its
+    image batch and caption batch launch the attention kernel once a layer
+    (and once for the MAP head), and every launch counts as
+    ``fused_attention_wgmma``."""
+    from multimodal_embedding_tpu_torch.models.arch import full_arch_config
+    from multimodal_embedding_tpu_torch.models.towers import DualEncoder
+
+    cfg = full_arch_config(name)
+    model = DualEncoder(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    s = cfg.vision.image_size
+    pixels = torch.randn(4, s, s, 3, generator=gen, device=dev)
+    ids = torch.randint(1, cfg.text.vocab_size, (8, cfg.text.max_len), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    mask[4:, cfg.text.max_len // 2 :] = 0
+    before = launch_counts()
+    with torch.inference_mode():
+        model.encode_image(pixels)
+        model.text(ids * mask, mask)  # the eager forward a caption batch's graph replays
+        torch.cuda.synchronize()
+    after = launch_counts()
+    d = {key: after[key] - before[key] for key in after}
+    map_head = cfg.vision.style == "siglip" and cfg.vision.use_head
+    expected = cfg.vision.layers + int(map_head) + cfg.text.layers
+    assert d["fused_attention"] + d["fused_attention_qkv"] == expected
+    assert d["fused_attention_wgmma"] == expected
 
 
 def test_attention_bf16_takes_a_long_key_row(dev):
@@ -514,6 +588,8 @@ def test_prologue_wrapper_raises_on_what_the_kernel_does_not_take(dev):
     (12, 12, 77, 64, True, True),  # CLIP text
     (16, 16, 64, 72, False, False),  # SigLIP's Dh 72
     (8, 2, 40, 32, True, True),  # grouped-query stacking
+    (16, 16, 729, 72, False, False),  # SigLIP-400M's vision: two warpgroups a block at Dh 72
+    (12, 12, 129, 64, True, True),  # past two 64-key tiles, causal with a key mask
 ])
 def test_attention_qkv_kernel_equals_attention_on_copies(dev, dtype, h, kvh, t, dh, causal, masked):
     rng = np.random.default_rng(6)

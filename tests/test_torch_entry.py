@@ -67,9 +67,9 @@ def test_entry_carries_the_dryrun():
 
 def test_launch_counts_put_each_launch_under_one_name(monkeypatch):
     """The attention wrapper counts a launch under its body's name (the
-    kernel call itself replaced: no card here); the other wrappers' counts
-    reach ``launch_counts`` under their own keys, the prologue's row pass
-    too."""
+    kernel call itself replaced: no card here), a bf16 one at Dh <= 80 also
+    as ``fused_attention_wgmma``; the other wrappers' counts reach
+    ``launch_counts`` under their own keys, the prologue's row pass too."""
     monkeypatch.setattr(KERNELS, "counts", {})
     monkeypatch.setattr(attention_cuda, "_run", lambda q, *args: q)
     for dtype, n in ((torch.bfloat16, 4), (torch.float32, 3)):
@@ -84,6 +84,7 @@ def test_launch_counts_put_each_launch_under_one_name(monkeypatch):
     counts = ops.launch_counts()
     assert counts == {"fused_attention": 4, "fused_attention_f32": 3, "fused_attention_qkv": 2, "preprocess": 4,
                       "maxsim": 4, "maxsim_f32": 1, "fused_res_norm_matmul": 6, "fused_layer_norm": 8,
-                      "fused_res_norm_rows": 5, "mlp_activation": 7, "grouped_mm": 9}
+                      "fused_res_norm_rows": 5, "mlp_activation": 7, "grouped_mm": 9,
+                      "fused_attention_wgmma": 6}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())

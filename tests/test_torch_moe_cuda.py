@@ -14,6 +14,9 @@ fixture, at run time). Run them on the card with
   attention kernel, routing, the sort, both grouped products, the combine
   and the shared experts) runs under ``torch.cuda.set_sync_debug_mode``
   "error", which raises at a synchronizing call.
+- MLA's attention (q/k 192, the kernel's Dh 256 template) runs the
+  mma.sync body: one ``fused_attention`` launch a layer, no
+  ``fused_attention_wgmma``.
 """
 
 import pytest
@@ -68,3 +71,17 @@ def test_moe_layer_makes_no_host_sync(dev, layer):
             torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(out).all())
     assert int(layer.loads.sum()) == 2 * 2 * t * 6
+
+
+def test_mla_attention_runs_the_mma_sync_body(dev, layer):
+    t = 130
+    h = torch.randn(1, t, layer.cfg.dim, device=dev).to(torch.bfloat16)
+    pos = torch.arange(t, device=dev).expand(1, t)
+    layer.tally, layer.loads = Tally(), torch.zeros(layer.cfg.n_experts, dtype=torch.int64, device=dev)
+    before = launch_counts()
+    with torch.inference_mode():
+        layer(h, pos, None, True)
+        torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["fused_attention"] - before["fused_attention"] == 1
+    assert after["fused_attention_wgmma"] == before["fused_attention_wgmma"]
