@@ -187,8 +187,9 @@ The last three lines are the kernels' JSON line (``flash_sdpa``, the
 ``fused_attention_f32`` and ``maxsim_f32`` are the f32 bodies of the two
 sources, their launches phase 12's; ``ops.launch_counts`` counts each launch
 under one name), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports only the port, torch
-and numpy.
+card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports only the port, the
+benchmark's yardstick (``perfbench/yardstick.py``: the card's peaks and ``bound_s``), torch and
+numpy.
 """
 
 from __future__ import annotations
@@ -209,16 +210,15 @@ from pathlib import Path
 
 import numpy as np
 
+from perfbench.yardstick import PEAKS, bound_s
+
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"
 
-# H100 SXM data-sheet peaks (dense, no sparsity), at the full 700 W limit.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # outside the tensor cores
-# f32 products as three TF32 tensor-core products (3xTF32, the f32 attention
-# and MaxSim kernels): a third of the 495 TFLOP/s dense TF32 peak
-PEAK_TF32X3_FLOPS = 495e12 / 3
-PEAK_BYTES = 3.35e12
+# The H100 SXM peaks of the benchmark's yardstick, and f32 products as three
+# TF32 tensor-core products (3xTF32, the f32 attention and MaxSim kernels): a
+# third of the dense TF32 peak
+H100 = {**PEAKS["H100"], "tf32x3_flops": PEAKS["H100"]["tf32_flops"] / 3}
 
 ATTN_TOL_BF16 = 2e-2  # bf16 kernel vs the f32 plain version on the same bf16 inputs
 ATTN_TOL_F32 = 1e-5
@@ -301,9 +301,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(flops: float, nbytes: float, peak_flops: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+def bound_ms(flops: float, nbytes: float, flops_key: str) -> tuple[float, str]:
+    """``yardstick.bound_s`` in milliseconds at the ``H100[flops_key]`` rate,
+    and which of the two it is bound by."""
+    by = "operations" if flops / H100[flops_key] >= nbytes / H100["bytes"] else "bytes"
+    return 1e3 * bound_s(flops, nbytes, H100, flops_key), by
 
 
 def attention_launches() -> int:
@@ -448,7 +450,7 @@ def _attention_case(name, *, b, h, kvh, t, dh, dtype, causal, masked, layout, fu
     pairs = float(valid.sum()) * h  # (batch, head, query, key) pairs the function needs
     flops = 4.0 * pairs * dh
     nbytes = es * dh * (2 * b * tq * h + 2 * b * t * kvh) + (b * t if km is not None else 0)
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    bms, by = bound_ms(flops, nbytes, "bf16_flops" if dtype == torch.bfloat16 else "f32_flops")
     case = {"case": name, "shape": [b, h, kvh, t, dh], "queries": tq, "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bms, "bound_by": by, "tflops": flops / (ms * 1e9), "device_ms": dev_ms,
@@ -467,8 +469,8 @@ def _f32_extras(flops: float, nbytes: float, dev_ms, library) -> dict:
     masks leave over the f32 peak; the bytes), its 3xTF32 bound (the
     operations over a third of the TF32 peak, or the bytes), its TFLOP/s on
     the device, and the library call's device time."""
-    return {"ops_ms": 1e3 * flops / PEAK_F32_FLOPS, "bytes_ms": 1e3 * nbytes / PEAK_BYTES,
-            "bound_3xtf32_ms": bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)[0],
+    return {"ops_ms": 1e3 * flops / H100["f32_flops"], "bytes_ms": 1e3 * nbytes / H100["bytes"],
+            "bound_3xtf32_ms": bound_ms(flops, nbytes, "tf32x3_flops")[0],
             "device_tflops": None if dev_ms is None else flops / (dev_ms * 1e9),
             "library_device_ms": device_ms(library)}
 
@@ -550,7 +552,7 @@ def _preprocess_case(name, *, h, w, b, model="OpenAI-CLIP-L", rng):
     # the multiply-adds these weights need: the nonzero bands of both passes
     flops = 2.0 * 3 * b * preprocess_weights(cfg, h, w, "cpu").taps
     nbytes = b * 3 * h * w + b * c * c * 3 * 4
-    bms, by = bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    bms, by = bound_ms(flops, nbytes, "f32_flops")
     case = {"case": name, "shape": [b, 3, h, w], "bit_equal": bit_equal,
             "max_abs_err": max(per_ch), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bms, "bound_by": by, "gbps": None if dev_ms is None else nbytes / (dev_ms * 1e6)}
@@ -607,13 +609,13 @@ def _maxsim_case(name, *, nq, tq, nd, td, dim, dtype, masked, rng, check_queries
     nbytes = q.element_size() * dim * (nq * tq + nd * td) + 4 * nq * nd
     if masked:
         nbytes += 4 * nq * tq + nd * td
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    bms, by = bound_ms(flops, nbytes, "bf16_flops" if bf16 else "f32_flops")
     case = {"case": name, "shape": [nq, tq, nd, td, dim], "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": err, "max_rel_err": rel, "checked_queries": nc, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
             "tflops": None if dev_ms is None else flops / (dev_ms * 1e9)}
     if not bf16:
-        case["bound_3xtf32_ms"] = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)[0]
+        case["bound_3xtf32_ms"] = bound_ms(flops, nbytes, "tf32x3_flops")[0]
     print(f"[maxsim] {json.dumps(case)}")
     return case
 
@@ -679,7 +681,7 @@ def _prologue_case(name, *, m, d, n, dtype, has_delta, act, norm="ln", eps=1e-5,
     es = x.element_size()
     flops = 2.0 * m * d * n
     nbytes = es * (m * d * (2 + has_delta) + d * n + m * n + 2 * d + n)
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    bms, by = bound_ms(flops, nbytes, "bf16_flops" if dtype == torch.bfloat16 else "f32_flops")
     if row_extra and dev_ms is not None and row_extra["row_device_ms"] is not None:
         prod_ms = dev_ms - row_extra["row_device_ms"]
         row_extra.update(product_device_ms=prod_ms, product_tflops=flops / (prod_ms * 1e9))
@@ -743,7 +745,7 @@ def _attention_qkv_case(name, *, b, h, t, dh, dtype, causal, masked, full_mask_r
     pairs = float(valid.sum()) * h
     flops = 4.0 * pairs * dh
     nbytes = qkv.element_size() * dh * 4 * b * t * h + (b * t if km is not None else 0)
-    bms, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+    bms, by = bound_ms(flops, nbytes, "bf16_flops" if bf16 else "f32_flops")
     case = {"case": name, "shape": [b, t, 3 * h * dh], "heads": h, "dtype": str(dtype).replace("torch.", ""),
             "bit_equal_to_fused_attention": True, "max_abs_err": err, "max_rel_err": max_rel,
             "mean_rel_err": mean_rel, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -779,7 +781,7 @@ def _layer_norm_case(name, *, m, d, dtype, eps, rng):
     library_ms = cuda_time_ms(lambda: F.layer_norm(x, (d,), scale, bias, eps))
     library_dev_ms = device_ms(lambda: F.layer_norm(x, (d,), scale, bias, eps))
     nbytes = x.element_size() * (2 * m * d + 2 * d)
-    bms, by = bound_ms(8.0 * m * d, nbytes, PEAK_F32_FLOPS)
+    bms, by = bound_ms(8.0 * m * d, nbytes, "f32_flops")
     case = {"case": name, "shape": [m, d], "dtype": str(dtype).replace("torch.", ""), "eps": eps,
             "max_abs_err": err, "max_rel_err": max_rel, "mean_rel_err": mean_rel, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "library_device_ms": library_dev_ms, "bound_ms": bms,
@@ -840,7 +842,7 @@ def _activation_case(name, *, m, n, act, dtype, rng):
         library_ms = cuda_time_ms(lambda: F.gelu(h, approximate=approximate))
         library_dev_ms = device_ms(lambda: F.gelu(h, approximate=approximate))
     nbytes = 2.0 * h.numel() * h.element_size()
-    bms, by = bound_ms(0.0, nbytes, PEAK_F32_FLOPS)
+    bms, by = bound_ms(0.0, nbytes, "f32_flops")
     case = {"case": name, "shape": [m, n], "act": act, "dtype": str(dtype).replace("torch.", ""),
             "max_ulps": max_ulps, "bit_equal": bit_equal, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "bound_ms": bms, "bound_by": by,
@@ -1235,8 +1237,6 @@ def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
 def phase_main_path(kernels: list[dict]) -> None:
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
-
     (clip,) = _main_path(CLI_ARGS, "main_path.csv", lambda m: ("fused_attention", "preprocess"))
     clip_row, clip_counts = clip["row"], clip["counts"]
     torch.cuda.empty_cache()
@@ -1249,11 +1249,8 @@ def phase_main_path(kernels: list[dict]) -> None:
     # R@10 = 100 with random weights
     require(float(row["T2I_R@10_mean"]) < 100.0, f"ColPali T2I R@10 {row['T2I_R@10_mean']}")
     torch.cuda.empty_cache()
-    try:
-        (fused,) = _main_path([*CLI_ARGS, "--layer-impl", "fused"], "main_path_fused.csv",
-                              lambda m: ("fused_res_norm_matmul", "fused_attention_qkv", "preprocess"))
-    finally:
-        layers.set_layer_impl("auto")
+    (fused,) = _main_path([*CLI_ARGS, "--layer-impl", "fused"], "main_path_fused.csv",
+                          lambda m: ("fused_res_norm_matmul", "fused_attention_qkv", "preprocess"))
     fused_row, fused_counts = fused["row"], fused["counts"]
     # every encoder layer of both towers: one stacked-QKV attention where the
     # xla layer ran one fused_attention, and two prologues (24 x 2 per image
@@ -1312,8 +1309,7 @@ def phase_bench_and_consistency() -> None:
 
     import torch
 
-    from multimodal_embedding_tpu_torch import bench
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import bench, runtime
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
     dev = torch.device("cuda")
@@ -1327,19 +1323,12 @@ def phase_bench_and_consistency() -> None:
     engine = EncodingEngine(model, batch_size=8, device=dev, preprocess_impl="auto")
     images = bench.bench_images(8)
     # phase 5: the bench's weights, kernels in bf16 (both layer impls) vs plain versions in f32
-    few = images
-    emb_kernel = engine.encode_images(few).embeddings
-    layers.set_layer_impl("fused")
-    try:
-        emb_fused = engine.encode_images(few).embeddings
-    finally:
-        layers.set_layer_impl("auto")
+    emb_kernel = engine.encode_images(images).embeddings
+    with runtime.using(layer="fused"):
+        emb_fused = engine.encode_images(images).embeddings
     model32 = copy.copy(model)
     model32.model = copy.deepcopy(model.model).float()
-    layers.set_attention_impl("xla")  # the unmasked vision tower: the kernel's plain function
-    plain_engine = EncodingEngine(model32, batch_size=8, device=dev, preprocess_impl="xla")
-    emb_plain = plain_engine.encode_images(few).embeddings
-    layers.set_attention_impl("auto")
+    emb_plain = _encode(model32, images, plain=True)[0]  # the unmasked vision tower: the kernels' plain functions
     cos = torch.nn.functional.cosine_similarity(emb_kernel.float(), emb_plain.float(), dim=-1)
     print(f"[consistency] per-image cosine kernel-bf16 vs plain-f32: {[round(float(c), 6) for c in cos]}")
     require(bool((cos >= COSINE_MIN).all()), f"cosine {float(cos.min())} < {COSINE_MIN}")
@@ -1350,11 +1339,8 @@ def phase_bench_and_consistency() -> None:
           f"{[round(float(c), 6) for c in cos_fx]}")
     require(bool((cos_f >= COSINE_MIN).all()), f"fused cosine {float(cos_f.min())} < {COSINE_MIN}")
     # --attention-impl flash: the unmasked vision tower on the same kernel, no key mask
-    layers.set_attention_impl("flash")
-    try:
-        emb_flash = engine.encode_images(few).embeddings
-    finally:
-        layers.set_attention_impl("auto")
+    with runtime.using(attention="flash"):
+        emb_flash = engine.encode_images(images).embeddings
     cos_fl = torch.nn.functional.cosine_similarity(emb_flash.float(), emb_plain.float(), dim=-1)
     print(f"[consistency] per-image cosine --attention-impl flash kernel-bf16 vs plain-f32: "
           f"{[round(float(c), 6) for c in cos_fl]}; bit-equal to the auto run: {bool(torch.equal(emb_flash, emb_kernel))}")
@@ -1375,8 +1361,7 @@ def phase_colpali_consistency() -> None:
 
     import torch
 
-    from multimodal_embedding_tpu_torch import bench
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import bench, runtime
     from multimodal_embedding_tpu_torch.models.arch import load_arch_model
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
@@ -1384,20 +1369,16 @@ def phase_colpali_consistency() -> None:
     images = bench.bench_images(2)
     captions = CAPTIONS[:4]
     model = load_arch_model("ColPali-v1.3", seed=0, device=dev, dtype=torch.bfloat16)
-    layers.set_attention_impl("auto")
     engine = EncodingEngine(model, batch_size=2, device=dev, preprocess_impl="auto")
     img_k = engine.encode_images(images).embeddings
     txt_k = engine.encode_texts(captions)
     model32 = copy.copy(model)
     model32.model = copy.deepcopy(model.model).float()
     del model, engine
-    layers.set_attention_impl("xla")
-    try:
+    with runtime.using(attention="xla"):
         plain = EncodingEngine(model32, batch_size=2, device=dev, preprocess_impl="xla")
         img_p = plain.encode_images(images).embeddings
         txt_p = plain.encode_texts(captions)
-    finally:
-        layers.set_attention_impl("auto")
     del model32, plain
     torch.cuda.empty_cache()
 
@@ -1428,36 +1409,23 @@ def phase_other_models_consistency() -> None:
     import torch
 
     from multimodal_embedding_tpu_torch import bench
-    from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.arch import load_arch_model
-    from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
     dev = torch.device("cuda")
     images = bench.bench_images(8)
     for name in OTHER_MODELS:
         model = load_arch_model(name, seed=0, device=dev, dtype=torch.bfloat16)
-        engine = EncodingEngine(model, batch_size=8, device=dev, preprocess_impl="auto")
-        kernel = {}
-        for impl in ("xla",) if name == "Jina-CLIP-v1" else ("xla", "fused"):
-            layers.set_layer_impl(impl)
-            try:
-                kernel[impl] = (engine.encode_images(images).embeddings, engine.encode_texts(CAPTIONS).embeddings)
-            finally:
-                layers.set_layer_impl("auto")
+        impls = ("xla",) if name == "Jina-CLIP-v1" else ("xla", "fused")
+        kernel = {impl: _encode(model, images, impl) for impl in impls}
         model32 = copy.copy(model)
         model32.model = copy.deepcopy(model.model).float()
-        del model, engine
-        layers.set_attention_impl("xla")
-        try:
-            plain = EncodingEngine(model32, batch_size=8, device=dev, preprocess_impl="xla")
-            img_p, txt_p = plain.encode_images(images).embeddings, plain.encode_texts(CAPTIONS).embeddings
-        finally:
-            layers.set_attention_impl("auto")
-        del model32, plain
+        del model
+        img_p, txt_p = _encode(model32, images, plain=True)
+        del model32
         torch.cuda.empty_cache()
         for impl, (img_k, txt_k) in kernel.items():
             cos_img = torch.nn.functional.cosine_similarity(img_k.float(), img_p.float(), dim=-1)
-            cos_txt = torch.nn.functional.cosine_similarity(txt_k.float(), txt_p.float(), dim=-1)
+            cos_txt = torch.nn.functional.cosine_similarity(txt_k.embeddings.float(), txt_p.embeddings.float(), dim=-1)
             print(f"[consistency] {name} --layer-impl {impl} pooled cosine kernel-bf16 vs plain-f32: images "
                   f"{[round(float(c), 6) for c in cos_img]}; captions {[round(float(c), 6) for c in cos_txt]}")
             worst = min(float(cos_img.min()), float(cos_txt.min()))
@@ -1578,16 +1546,16 @@ def _loaded(name: str, tree: dict, cfg, dtype):
                        tokenize=arch_tokenizer(info, cfg), multi_vector=info.type == "colpali")
 
 
-def _encode(model, images, impl: str, preprocess_impl: str = "auto"):
-    from multimodal_embedding_tpu_torch.models import layers
+def _encode(model, images, layer: str = "xla", *, plain: bool = False):
+    """``model``'s image embeddings and caption output at batch 8: through
+    the kernels under ``layer``, or, ``plain``, through every kernel's plain
+    version (preprocess and attention "xla")."""
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
 
-    engine = EncodingEngine(model, batch_size=8, device="cuda", preprocess_impl=preprocess_impl)
-    layers.set_layer_impl(impl)
-    try:
+    engine = EncodingEngine(model, batch_size=8, device="cuda", preprocess_impl="xla" if plain else "auto")
+    with runtime.using(layer=layer, **({"attention": "xla"} if plain else {})):
         return engine.encode_images(images).embeddings, engine.encode_texts(CAPTIONS)
-    finally:
-        layers.set_layer_impl("auto")
 
 
 def _check_colpali(img_k, txt_k, img_p, txt_p) -> None:
@@ -1629,7 +1597,7 @@ def phase_converted(kernels: list[dict]) -> None:
     import torch
 
     from multimodal_embedding_tpu_torch import bench
-    from multimodal_embedding_tpu_torch.models import layers, zoo
+    from multimodal_embedding_tpu_torch.models import zoo
     from multimodal_embedding_tpu_torch.models.arch import arch_tokenizer, full_arch_config
     from multimodal_embedding_tpu_torch.models.checkpoint import load_params, save_params
 
@@ -1655,11 +1623,7 @@ def phase_converted(kernels: list[dict]) -> None:
             del model
             torch.cuda.empty_cache()
             model32 = _loaded(name, tree, cfg, torch.float32)
-            layers.set_attention_impl("xla")  # the kernels' plain functions
-            try:
-                img_p, txt_p = _encode(model32, images, "xla", preprocess_impl="xla")
-            finally:
-                layers.set_attention_impl("auto")
+            img_p, txt_p = _encode(model32, images, plain=True)
             del model32
             torch.cuda.empty_cache()
             print(f"[converted] {name}: convert {convert_s:.2f} s (drawing the values {draw_s:.2f} s of it), "
@@ -1804,7 +1768,6 @@ def phase_workload_a(kernels: list[dict]) -> None:
     from multimodal_embedding_tpu_torch.analysis import report
     from multimodal_embedding_tpu_torch.cli import analyze, encode_cli, multi_seed, probe
     from multimodal_embedding_tpu_torch.cli import search as search_cli
-    from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
     from multimodal_embedding_tpu_torch.ops.maxsim_cuda import maxsim_scores_ref
     from multimodal_embedding_tpu_torch.retrieval import search as search_mod
@@ -1820,17 +1783,14 @@ def phase_workload_a(kernels: list[dict]) -> None:
     print(f"[phase7] staging on the engine (256 images, 4 geometries, batch 64): {json.dumps(checks)}; card {card}")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as score_dir:
-        try:
-            (overlap,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "staging_overlap.csv", dense)
-            (streaming,) = _main_path([*STAGING_ARGS, "--streaming-encode"], "staging_streaming.csv", dense)
-            (host,) = _main_path([*STAGING_ARGS, "--transport", "host", "--no-device-cache"], "transport_host.csv",
-                                 lambda m: ("fused_attention",))
-            # 2. --attention-impl flash
-            (flash,) = _main_path([*STAGING_ARGS, "--attention-impl", "flash"], "flash.csv", dense)
-            # 3. --score-cache-dir: the overlap run wrote the matrices; this run reads them
-            (resumed,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "score_cache.csv", lambda m: ())
-        finally:
-            layers.set_attention_impl("auto")
+        (overlap,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "staging_overlap.csv", dense)
+        (streaming,) = _main_path([*STAGING_ARGS, "--streaming-encode"], "staging_streaming.csv", dense)
+        (host,) = _main_path([*STAGING_ARGS, "--transport", "host", "--no-device-cache"], "transport_host.csv",
+                             lambda m: ("fused_attention",))
+        # 2. --attention-impl flash
+        (flash,) = _main_path([*STAGING_ARGS, "--attention-impl", "flash"], "flash.csv", dense)
+        # 3. --score-cache-dir: the overlap run wrote the matrices; this run reads them
+        (resumed,) = _main_path([*STAGING_ARGS, "--score-cache-dir", score_dir], "score_cache.csv", lambda m: ())
     require(host["counts"]["preprocess"] == 0, f"--transport host launched the preprocess kernel: {host['counts']}")
     # flash: the vision tower through the kernel (24 a batch of 64), the
     # masked text tower through the plain f32 path
@@ -1996,7 +1956,7 @@ def _qwen3_consistency(dev) -> dict:
 
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
 
     cfg = dataclasses.replace(QWEN3_14B, layers=CONSISTENCY_LAYERS)
@@ -2014,12 +1974,9 @@ def _qwen3_consistency(dev) -> dict:
         hk, _ = model.prefill(ids, mask, t)
         lk = model.lm_logits(hk[:, -1:])[:, 0]
         launches = attention_launches() - a0
-        layers.set_attention_impl("xla")
-        try:
+        with runtime.using(attention="xla"):
             hp, _ = model32.prefill(ids, mask, t)
             lp = model32.lm_logits(hp[:, -1:])[:, 0]
-        finally:
-            layers.set_attention_impl("auto")
     require(launches == CONSISTENCY_LAYERS, f"4-layer prefill launched the attention kernel {launches} times")
     cos_h, cos_l = _cosines(hk[valid], hp[valid]), _cosines(lk, lp)
     out = {"layers": CONSISTENCY_LAYERS, "batch": b, "prompt_lengths": lengths.tolist(),
@@ -2062,7 +2019,7 @@ def _qwen3_serving(dev) -> dict:
     the first batch."""
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
     from multimodal_embedding_tpu_torch.rl import verify
     from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
@@ -2149,23 +2106,20 @@ def _qwen3_serving(dev) -> dict:
     weights = sum(p.numel() for p in merged.layers.parameters()) + merged.lm_head.numel()
     cache_bytes = 2 * kv["k"].numel() * kv["k"].element_size()
     flops = 2.0 * weights * VERIFY_BATCH + 4.0 * VERIFY_BATCH * cfg.heads * (tp + VERIFY_NEW) * cfg.head_dim * cfg.layers
-    step_bound, step_by = bound_ms(flops, 2 * weights + cache_bytes, PEAK_BF16_FLOPS)
+    step_bound, step_by = bound_ms(flops, 2 * weights + cache_bytes, "bf16_flops")
     del kv, args
     out.update(decode_step_alone_ms=step_ms, decode_step_device_ms=step_dev_ms, decode_step_bound_ms=step_bound,
                decode_step_bound_by=step_by, weight_bytes=2 * weights, cache_bytes=cache_bytes,
                decode_step_host=host)
 
     # the same merged weights through the plain attention path, first batch
-    layers.set_attention_impl("xla")
-    try:
+    with runtime.using(attention="xla"):
         a0 = attention_launches()
         plain_toks, _ = generate(merged, ids, mask, VERIFY_NEW, greedy=True)
         with torch.no_grad():
             hidden, _ = merged.prefill(ids, mask, tp)
             first_p = merged.lm_logits(hidden[:, -1:])[:, 0]
         require(attention_launches() == a0, "the plain path launched the attention kernel")
-    finally:
-        layers.set_attention_impl("auto")
     cos = _cosines(first_k, first_p)
     out.update(plain_token_agreement=float((plain_toks == toks).float().mean()),
                plain_first_token_equal=float((plain_toks[:, 0] == toks[:, 0]).float().mean()),
@@ -2277,7 +2231,7 @@ def _grpo_consistency(dev) -> dict:
 
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
     from multimodal_embedding_tpu_torch.rl import grpo
     from multimodal_embedding_tpu_torch.rl.datasets import generate_support_tickets
@@ -2298,15 +2252,12 @@ def _grpo_consistency(dev) -> dict:
            "completion_tokens": int(comp_mask.sum())}
     runs = {}
     for side, tr in trainers.items():
-        layers.set_attention_impl("auto" if side == "kernels_bf16" else "xla")
-        try:
+        with runtime.using(attention="auto" if side == "kernels_bf16" else "xla"):
             a0 = attention_launches()
             with torch.no_grad():
                 ref = grpo._completion_logps(tr.base, p_ids, p_mask, comps)
             (loss, (pg, kl)), grads = tr.loss_and_grads(trainer.adapters, p_ids, p_mask, comps, comp_mask, adv, ref)
             runs[side] = (float(loss), float(pg), float(kl), grads, attention_launches() - a0)
-        finally:
-            layers.set_attention_impl("auto")
     (lk, pk, kk, gk, nk), (lp, pp, kp, gp, np_) = runs["kernels_bf16"], runs["plain_f32"]
     require(nk == 2 * CONSISTENCY_LAYERS and np_ == 0,
             f"attention launches: kernels {nk} (want {2 * CONSISTENCY_LAYERS}: ref and loss passes), plain {np_}")
@@ -2577,8 +2528,8 @@ def _rank_colpali_sp(dev, report: dict) -> None:
     import torch
 
     from multimodal_embedding_tpu_torch.cli.main import SEED, load_model_for
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.data.coco import load_benchmark_dataset
-    from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.encode import EncodingEngine
     from multimodal_embedding_tpu_torch.models.registry import model_info
     from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2594,12 +2545,9 @@ def _rank_colpali_sp(dev, report: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    layers.set_sp_mesh(mesh)
-    try:
+    with runtime.using(sp=mesh):
         img, txt = engine.encode_images(images).embeddings, engine.encode_texts(queries)
         scores = late_interaction_scores(txt.embeddings, img, impl="auto", mesh=mesh)
-    finally:
-        layers.set_sp_mesh(None)
     torch.cuda.synchronize()
     counts = launch_counts()
     valid = txt.mask.bool()
@@ -3107,7 +3055,7 @@ def _qwen3_f32_generate(dev) -> dict:
 
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.qwen3 import QWEN3_14B, Qwen3
     from multimodal_embedding_tpu_torch.rl.generate import generate
 
@@ -3124,19 +3072,15 @@ def _qwen3_f32_generate(dev) -> dict:
     valid = mask.bool()
     runs = {}
     for impl in ("pallas", "xla"):  # the kernel route, then the plain attention path
-        layers.set_attention_impl(impl)
-        try:
-            with torch.no_grad():
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                (hidden, _), prefill_counts = _count_launches(lambda: model.prefill(ids, mask, t))
-                torch.cuda.synchronize()
-                prefill_ms = 1e3 * (time.perf_counter() - t0)
-                first = model.lm_logits(hidden[:, -1:])[:, 0]
-                (toks, _), counts = _count_launches(
-                    lambda: generate(model, ids, mask, F32_GENERATE_NEW, greedy=True))
-        finally:
-            layers.set_attention_impl("auto")
+        with runtime.using(attention=impl), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (hidden, _), prefill_counts = _count_launches(lambda: model.prefill(ids, mask, t))
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+            first = model.lm_logits(hidden[:, -1:])[:, 0]
+            (toks, _), counts = _count_launches(
+                lambda: generate(model, ids, mask, F32_GENERATE_NEW, greedy=True))
         runs[impl] = {"hidden": hidden[valid], "first": first, "toks": toks, "prefill_ms": prefill_ms,
                       "prefill_counts": prefill_counts, "counts": counts}
         del hidden
@@ -3209,6 +3153,7 @@ def phase_entry(kernels: list[dict]) -> None:
 
     import torch
 
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.entry import IMAGE_H, IMAGE_W, entry
     from multimodal_embedding_tpu_torch.models import layers
     from multimodal_embedding_tpu_torch.models.registry import model_info
@@ -3241,12 +3186,8 @@ def phase_entry(kernels: list[dict]) -> None:
     model32 = copy.deepcopy(model).float()
     plain_pre = make_preprocess_fn(model_info("OpenAI-CLIP-L").preprocess, IMAGE_H, IMAGE_W, device="cuda",
                                    input_format="nchw")
-    layers.set_attention_impl("xla")
-    try:
-        with torch.inference_mode():
-            plain = layers.l2_normalize(model32.encode_image(plain_pre(images)))
-    finally:
-        layers.set_attention_impl("auto")
+    with runtime.using(attention="xla"), torch.inference_mode():
+        plain = layers.l2_normalize(model32.encode_image(plain_pre(images)))
     cos = torch.nn.functional.cosine_similarity(emb, plain, dim=-1)
     out = {"batch": 8, "image": [IMAGE_H, IMAGE_W], "embedding": [8, dim], "ms": ms, "device_ms": dev_ms,
            "img_per_s": 8e3 / ms, "peak_memory_bytes": peak, "launches_per_call": counts,

@@ -64,11 +64,9 @@ def run_once(device) -> dict:
     import torch
 
     from .models.encode import EncodingEngine, stage_images
-    from .models.layers import set_attention_impl
     from .utils.timing import hard_sync
 
     device = torch.device(device)
-    set_attention_impl("auto")
     engine = EncodingEngine(bench_model(device), BATCH, device=device)
     cache = stage_images(bench_images(N_IMAGES), BATCH, device)  # one-time staging, untimed
     engine.encode_images_cached(cache)  # warmup pass

@@ -57,13 +57,14 @@ import numpy as np
 import pandas as pd
 import torch
 
+from .. import runtime
 from ..analysis.failure import aggregate_failure_analysis
 from ..data.captions import caps_per_image
 from ..data.coco import load_benchmark_dataset
 from ..models.encode import AsyncImageStager, DeviceImageCache, EncodingEngine, stage_images
 from ..models.registry import get_models_to_test
 from ..models.zoo import LoadedModel, load_debug_model, load_model
-from ..parallel.mesh import barrier, distributed, get_mesh, is_writer, resolve_rank_device, world_size
+from ..parallel.mesh import Mesh, barrier, distributed, get_mesh, is_writer, resolve_rank_device, world_size
 from ..retrieval.scoring import dense_scores, late_interaction_scores
 from ..stats.bootstrap import bootstrap_benchmark
 from ..stats.ci import bootstrap_confidence_interval
@@ -128,7 +129,7 @@ def parse_args(argv=None):
                         "port's mme.* ranges (encode sweeps, batches, tokenization, kernel calls), which cost "
                         "nothing when no profiler runs")
     p.add_argument("--attention-impl", type=str, default="auto",
-                   choices=["auto", "xla", "xla_bf16", "pallas", "flash"],
+                   choices=runtime.ATTENTION_IMPLS,
                    help="Tower self-attention: auto (the fused CUDA kernel on the "
                         "card, f32-logit SDPA on the CPU), f32-logit SDPA, "
                         "bf16-logit SDPA, the fused kernel ('pallas'), or 'flash' "
@@ -137,7 +138,7 @@ def parse_args(argv=None):
     p.add_argument("--preprocess-impl", type=str, default="auto", choices=["auto", "xla", "pallas"],
                    help="Device preprocessing: auto (the CUDA kernel on the card, "
                         "plain matmuls on the CPU), plain matmuls, or the kernel ('pallas')")
-    p.add_argument("--layer-impl", type=str, default="auto", choices=["auto", "xla", "fused"],
+    p.add_argument("--layer-impl", type=str, default="auto", choices=runtime.LAYER_IMPLS,
                    help="Encoder layer: auto and xla (plain ops), or fused (the "
                         "residual+LayerNorm+matmul prologue CUDA kernel feeding the "
                         "stacked-QKV attention kernel; their plain versions on the CPU)")
@@ -365,43 +366,31 @@ def _load(info, args, device) -> LoadedModel:
 def main(argv=None) -> int:
     args = parse_args(argv)
     check_parallel_flags(args)
-    from ..models.layers import set_sp_mesh, set_tp_mesh
-
+    tp, sp = args.tensor_parallel > 1, args.sequence_parallel > 1
     with distributed(args.device) as device:
-        try:
-            return _run(args, device)
-        finally:
-            set_tp_mesh(None)
-            set_sp_mesh(None)
+        # rank 0 keeps the log; the other ranks print warnings and errors only
+        setup_logging(**({} if is_writer() else {"log_file": None, "level": logging.WARNING}))
+        logger.info(f"BENCHMARK START (V29 STATISTICAL, PyTorch/CUDA) - Output: {args.output}")
+        logger.info(f"Bootstrap iterations: {args.bootstrap_iterations}; device: {device}")
+        mesh = get_mesh(n_model=max(args.tensor_parallel, args.sequence_parallel))
+        if mesh.size > 1:
+            import torch.distributed as dist
 
-
-def _run(args, device: torch.device) -> int:
-    # rank 0 keeps the log; the other ranks print warnings and errors only
-    setup_logging(**({} if is_writer() else {"log_file": None, "level": logging.WARNING}))
-    logger.info(f"BENCHMARK START (V29 STATISTICAL, PyTorch/CUDA) - Output: {args.output}")
-    logger.info(f"Bootstrap iterations: {args.bootstrap_iterations}; device: {device}")
-
-    from ..models.layers import set_attention_impl, set_layer_impl, set_sp_mesh, set_tp_mesh
-
-    set_attention_impl(args.attention_impl)
-    set_layer_impl(args.layer_impl)
-    mesh = get_mesh(n_model=max(args.tensor_parallel, args.sequence_parallel))
-    if mesh.size > 1:
-        import torch.distributed as dist
-
-        logger.info(f"Device mesh: {mesh.shape} over {mesh.size} ranks ({dist.get_backend()} backend), "
-                    f"rank 0 on {device}")
-    set_sp_mesh(mesh if args.sequence_parallel > 1 else None)
-    set_tp_mesh(mesh if args.tensor_parallel > 1 else None)
-    if args.sequence_parallel > 1:
-        logger.info(f"--sequence-parallel {args.sequence_parallel}: ColPali's Gemma token dim sharded over the "
-                    f"model axis (K/V all-gather)")
-    if args.tensor_parallel > 1:
+            logger.info(f"Device mesh: {mesh.shape} over {mesh.size} ranks ({dist.get_backend()} backend), "
+                        f"rank 0 on {device}")
+        if sp:
+            logger.info(f"--sequence-parallel {args.sequence_parallel}: ColPali's Gemma token dim sharded over "
+                        f"the model axis (K/V all-gather)")
+        if tp:
+            logger.info("--tensor-parallel: attention kernel runs per-rank head shards; layer prologue fusion -> xla")
         # the attention kernel runs on each rank's heads; the residual+LN+matmul
-        # prologue kernel does not split, so the layer impl takes the plain path
-        set_layer_impl("xla")
-        logger.info("--tensor-parallel: attention kernel runs per-rank head shards; layer prologue fusion -> xla")
+        # prologue kernel does not split, so under TP the layer takes the plain path
+        with runtime.using(attention=args.attention_impl, layer="xla" if tp else args.layer_impl,
+                           tp=mesh if tp else None, sp=mesh if sp else None):
+            return _run(args, device, mesh)
 
+
+def _run(args, device: torch.device, mesh: Mesh) -> int:
     records = load_benchmark_dataset(
         args.dataset, cache_dir=args.cache_dir, workers=args.workers,
         sample_size=args.sample_size, seed=args.seed,

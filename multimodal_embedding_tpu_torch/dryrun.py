@@ -146,7 +146,7 @@ def _sequence(n: int, dev) -> dict:
     import numpy as np
     import torch
 
-    from .models import layers
+    from . import runtime
     from .models.gemma import Gemma, GemmaConfig
     from .models.layers import l2_normalize
     from .models.qwen3 import Qwen3, Qwen3Config
@@ -206,12 +206,8 @@ def _sequence(n: int, dev) -> dict:
     # tensor parallelism on a (data, model) mesh: Megatron splits of the weights
     n_model = 2 if n % 2 == 0 else 1
     tp_mesh = get_mesh(n_data=n // n_model, n_model=n_model)
-    layers.set_tp_mesh(tp_mesh)
-    try:
-        with torch.inference_mode():
-            tp_img, tp_txt, _ = encode(shard_params_tp(DualEncoder(cfg, seed=0, device=dev), tp_mesh), tp_mesh)
-    finally:
-        layers.set_tp_mesh(None)
+    with runtime.using(tp=tp_mesh), torch.inference_mode():
+        tp_img, tp_txt, _ = encode(shard_params_tp(DualEncoder(cfg, seed=0, device=dev), tp_mesh), tp_mesh)
     if tp_img.shape[0] != n_img or tp_txt.shape[0] != n_img:
         raise RuntimeError(f"tp encode shapes {tuple(tp_img.shape)}, {tuple(tp_txt.shape)}")
 
@@ -226,12 +222,8 @@ def _sequence(n: int, dev) -> dict:
         if sp_out.shape != (bq, hq, tq, dq):
             raise RuntimeError(f"sp attention shape {tuple(sp_out.shape)}")
         # ColPali's Gemma with its tokens sharded over the model axis
-        layers.set_sp_mesh(tp_mesh)
-        try:
-            with torch.inference_mode():
-                s_mv_sp = cp_step(tp_mesh)
-        finally:
-            layers.set_sp_mesh(None)
+        with runtime.using(sp=tp_mesh), torch.inference_mode():
+            s_mv_sp = cp_step(tp_mesh)
         diff = float((s_mv_sp - s_mv).abs().max())
         if not diff <= SP_SCORES_TOL * max(1.0, float(s_mv.abs().max())):
             raise RuntimeError(f"ColPali scores under sequence parallelism differ by {diff}")

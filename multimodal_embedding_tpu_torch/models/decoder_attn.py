@@ -7,7 +7,7 @@ already projected and rope'd q [B, T, H, Dh] and k, v [B, T, KVH, Dh] ->
 every key) and a static causal flag. The encoders and the generation prefill
 take it.
 
-The implementation follows ``layers.set_attention_impl``:
+The implementation follows ``runtime.attention_impl``:
 - "pallas" ("auto" on the card): the fused attention kernel
   (``ops/attention_cuda.py``) in its packed layout with ``num_kv_heads``,
   reading the projections through strides (no transposes, Dh 256 included);
@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from .layers import attention_impl_for
+from .. import runtime
 
 NEG_INF = -1e30
 
@@ -57,7 +57,7 @@ def grouped_attention(
         out = sp_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), sp, key_mask=key_mask,
                            causal=causal, sm_scale=sm_scale)
         return out.transpose(1, 2).reshape(b, t, heads * dh)
-    impl = attention_impl_for(q)
+    impl = runtime.attention_impl(q.device)
     if impl == "pallas":
         from ..ops.attention_cuda import fused_attention
 

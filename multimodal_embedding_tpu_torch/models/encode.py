@@ -31,7 +31,7 @@ to a multiple of the data axis (as the JAX engine does); each data rank
 stages and encodes its rows of every padded batch, and the embeddings are
 gathered in the original order. Token ids come from rank 0, broadcast to
 every rank (the debug tokenizer's hash is salted per process). Under tensor
-parallelism (``layers.set_tp_mesh``) the engine splits the model's weights
+parallelism (``runtime.current().tp``) the engine splits the model's weights
 once (``parallel/tp.py:shard_params_tp``).
 """
 
@@ -46,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import runtime
 from ..ops.preprocess import host_resize_crop, make_normalize_fn, make_preprocess_fn
 from ..ops.preprocess_cuda import make_preprocess_cuda_fn
 from ..parallel.batched import gather_batches, local_slice, pad_to_multiple, sharded_batch_apply
@@ -303,15 +304,11 @@ class EncodingEngine:
         self.mesh = mesh
         self.batch_size = data_batch(batch_size, mesh)
         self._local_batch = self.batch_size // (1 if mesh is None else mesh.n_data)
-        from .layers import get_tp_mesh
-
-        if mesh is not None and get_tp_mesh() is not None:
+        if mesh is not None and runtime.current().tp is not None:
             from ..parallel.tp import shard_params_tp
 
             shard_params_tp(model.model, mesh)
-        if preprocess_impl == "auto":
-            preprocess_impl = "pallas" if self.device.type == "cuda" else "xla"
-        self.preprocess_impl = preprocess_impl
+        self.preprocess_impl = runtime.resolve(preprocess_impl, self.device)
         if transport == "auto":
             host = measure_put_bandwidth_mbps(self.device) < 1000.0
             # every rank takes rank 0's choice: the two transports batch differently

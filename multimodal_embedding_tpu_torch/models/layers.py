@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from .. import runtime
 from ..ops.activation_cuda import mlp_activation
 
 # --- ops --------------------------------------------------------------------
@@ -80,107 +81,6 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
     return torch.nn.functional.layer_norm(x, (x.shape[-1],), scale, bias, eps)
 
 
-# Tower self-attention implementation:
-#  - "pallas":   the fused attention kernel (ops/attention_cuda.py); the name
-#                of the TPU package's kernel route, kept so its command lines
-#                run unchanged. On CPU tensors the kernel's plain version.
-#  - "flash":    the TPU package's route to jax's library flash-attention
-#                kernel (JAX models/layers.py:_flash_sdpa): self-attention
-#                with no key mask (causal or not) goes to the same fused
-#                kernel, over the real T tokens (the TPU kernel's padding of T
-#                to 128 is a lane rule); every other call (a key mask, cross
-#                attention) takes the "xla" path, as in the JAX package.
-#  - "xla":      einsum SDPA with f32 logits and -inf masking;
-#  - "xla_bf16": the same with logits computed in the model dtype;
-#  - "auto":     "pallas" for CUDA tensors, "xla" on the CPU. No TPU
-#                crossovers carry over: on the card every tower
-#                self-attention goes to the kernel.
-ATTENTION_IMPLS = ("auto", "xla", "xla_bf16", "pallas", "flash")
-_ATTENTION_IMPL = "auto"
-
-
-def set_attention_impl(impl: str) -> None:
-    global _ATTENTION_IMPL
-    if impl not in ATTENTION_IMPLS:
-        raise ValueError(f"attention impl must be one of {ATTENTION_IMPLS}, not {impl!r}")
-    _ATTENTION_IMPL = impl
-
-
-def get_attention_impl(device) -> str:
-    """Resolved implementation for tensors on ``device`` (never "auto")."""
-    if _ATTENTION_IMPL == "auto":
-        return "pallas" if torch.device(device).type == "cuda" else "xla"
-    return _ATTENTION_IMPL
-
-
-def attention_impl_for(x: torch.Tensor) -> str:
-    """Resolved implementation for activations ``x`` (never "auto")."""
-    return get_attention_impl(x.device)
-
-
-# Encoder-layer implementation:
-#  - "xla":   each EncoderLayer as separate PyTorch ops;
-#  - "fused": the residual+LN+matmul prologue kernel
-#             (ops/fused_ln_matmul_cuda.py) feeding the stacked-QKV attention
-#             kernel (ops/attention_cuda.py:fused_attention_qkv); on CPU
-#             tensors their plain versions;
-#  - "auto":  "xla", as in the JAX package. The JAX package's reason is a TPU
-#             measurement and does not carry over; no H100 measurement has
-#             chosen between the two yet (PERF.md).
-LAYER_IMPLS = ("auto", "xla", "fused")
-_LAYER_IMPL = "auto"
-
-
-def set_layer_impl(impl: str) -> None:
-    global _LAYER_IMPL
-    if impl not in LAYER_IMPLS:
-        raise ValueError(f"layer impl must be one of {LAYER_IMPLS}, not {impl!r}")
-    _LAYER_IMPL = impl
-
-
-def get_layer_impl() -> str:
-    """Resolved implementation name (never "auto")."""
-    return "xla" if _LAYER_IMPL == "auto" else _LAYER_IMPL
-
-
-# Tensor-parallel mesh (set by the CLI under --tensor-parallel above 1). The
-# weights' split is done once, in place, by ``parallel/tp.py:shard_params_tp``,
-# which the encoding engine calls while this is set; the split modules then
-# carry what their forward needs (their local head count, the model-axis
-# group of a row-split output projection), so each rank's attention runs the
-# kernel on its own heads with no collective.
-_TP_MESH = None
-
-
-def set_tp_mesh(mesh) -> None:
-    """Register the (data, model) mesh of a tensor-parallel run (None to
-    clear). Only a mesh with a model axis above 1 changes behaviour."""
-    global _TP_MESH
-    _TP_MESH = mesh
-
-
-def get_tp_mesh():
-    return _TP_MESH if _TP_MESH is not None and _TP_MESH.n_model > 1 else None
-
-
-# Sequence-parallel mesh (set by the CLI under --sequence-parallel above 1):
-# ColPali's Gemma runs on this rank's shard of the tokens where the model
-# axis divides the sequence (``parallel/sp.py:sp_mesh_for``), its attention
-# all-gathering K and V (``parallel/sp.py:sp_attention``).
-_SP_MESH = None
-
-
-def set_sp_mesh(mesh) -> None:
-    """Register the (data, model) mesh of a sequence-parallel run (None to
-    clear). Only a mesh with a model axis above 1 changes behaviour."""
-    global _SP_MESH
-    _SP_MESH = mesh
-
-
-def get_sp_mesh():
-    return _SP_MESH if _SP_MESH is not None and _SP_MESH.n_model > 1 else None
-
-
 def attention_core(
     qf: torch.Tensor,
     kf: torch.Tensor,
@@ -200,7 +100,7 @@ def attention_core(
     b, tq, d = qf.shape
     tk = kf.shape[1]
     dh = d // n_heads
-    impl = attention_impl_for(qf)
+    impl = runtime.attention_impl(qf.device)
     if impl == "flash":
         impl = "pallas" if self_attn and mask is None else "xla"
 
@@ -344,7 +244,7 @@ class Encoder(nn.Module):
         )
 
     def forward(self, x, *, causal: bool = False, mask: torch.Tensor | None = None):
-        if get_layer_impl() == "fused":
+        if runtime.layer_impl() == "fused":
             return self._fused_forward(x, causal=causal, mask=mask)
         for layer in self.layers:
             x = layer(x, causal=causal, mask=mask)
@@ -363,10 +263,10 @@ class Encoder(nn.Module):
         from ..ops.attention_cuda import fused_attention_qkv
         from ..ops.fused_ln_matmul_cuda import fused_res_norm_matmul
 
-        if get_tp_mesh() is not None:
+        if runtime.current().tp is not None:
             raise ValueError("--layer-impl fused does not take tensor-parallel weights; use xla")
         d = x.shape[-1]
-        use_qkv_kernel = attention_impl_for(x) == "pallas"
+        use_qkv_kernel = runtime.attention_impl(x.device) == "pallas"
         h, delta = x, None
         for layer in self.layers:
             attn = layer.attn

@@ -16,9 +16,9 @@ block, docs per slice) with :func:`plan_grid` for bf16 and
 :func:`plan_grid_f32` for f32. The f32 kernel multiplies in 3xTF32 on the
 tensor cores (within about 2^-21 of f32 a product); every search of an f32
 index (``cli/search.py`` on ``cli/encode_cli.py``'s output) runs it.
-:func:`maxsim_scores` routes by ``impl`` ("auto"/"pallas": the kernel for
-CUDA tensors, "xla": the plain version); tensors that lie on the CPU always
-take the plain version.
+:func:`maxsim_scores` routes by ``impl`` as :func:`route` resolves it
+("auto"/"pallas": the kernel for CUDA tensors, "xla": the plain version);
+tensors that lie on the CPU always take the plain version.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import runtime
 from ..utils.profiling import KERNELS
 from . import build
 
@@ -220,6 +221,12 @@ def _launch(q, d, q_mask, d_mask) -> torch.Tensor:
     return out
 
 
+def route(impl: str, device) -> str:
+    """The path ``impl`` takes for tensors on ``device``: "xla" on the CPU
+    whatever ``impl`` says, else ``runtime.resolve``'s."""
+    return "xla" if torch.device(device).type == "cpu" else runtime.resolve(impl, device)
+
+
 def maxsim_scores(q, d, q_mask=None, d_mask=None, *, impl: str = "auto", mesh=None) -> torch.Tensor:
     """MaxSim scores [NQ, ND] (float32). impl: "auto" or "pallas" (the
     kernel; the name of the TPU package's kernel route) for CUDA tensors,
@@ -230,7 +237,7 @@ def maxsim_scores(q, d, q_mask=None, d_mask=None, *, impl: str = "auto", mesh=No
     gathered in order."""
     if impl not in IMPLS:
         raise ValueError(f"maxsim impl must be one of {IMPLS}, not {impl!r}")
-    plain = q.device.type == "cpu" or impl == "xla"
+    plain = route(impl, q.device) == "xla"
 
     def score(qb, qmb):
         return maxsim_scores_ref(qb, d, qmb, d_mask) if plain else maxsim_cuda(qb, d, qmb, d_mask)

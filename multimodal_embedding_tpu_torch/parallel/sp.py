@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from .. import runtime
 from .mesh import Mesh, all_gather_cat
 
 NEG_INF = -1e30
@@ -25,9 +26,7 @@ def sp_mesh_for(t: int) -> Mesh | None:
     """The registered sequence-parallel mesh where its model axis divides a
     sequence of ``t`` tokens; None otherwise (the whole sequence then runs on
     every rank, as the JAX package falls through)."""
-    from ..models.layers import get_sp_mesh
-
-    sp = get_sp_mesh()
+    sp = runtime.current().sp
     return sp if sp is not None and t % sp.n_model == 0 else None
 
 

@@ -24,6 +24,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import runtime
+from ..ops import maxsim_cuda
+
 logger = logging.getLogger("mme_tpu")
 
 
@@ -39,18 +42,12 @@ def dataset_fingerprint(records: list[dict]) -> str:
 def numerics_fingerprint(preprocess_impl: str = "auto", maxsim_impl: str = "auto", *, device) -> str:
     """Everything that changes the score matrices' numerics, so that a rerun
     under other implementations or on another device misses the cache."""
-    from ..models.layers import get_attention_impl, get_layer_impl, get_sp_mesh, get_tp_mesh
-
     dev = torch.device(device)
-    on_card = dev.type == "cuda"
-    kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
-    if preprocess_impl == "auto":  # as EncodingEngine resolves it
-        preprocess_impl = "pallas" if on_card else "xla"
-    # as ops/maxsim_cuda.py:maxsim_scores routes: CPU tensors take the plain version
-    maxsim_impl = "xla" if not on_card or maxsim_impl == "xla" else "pallas"
-    key = f"torch-{kind}-{get_attention_impl(dev)}-{get_layer_impl()}-{preprocess_impl}-{maxsim_impl}"
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    key = (f"torch-{kind}-{runtime.attention_impl(dev)}-{runtime.layer_impl()}-"
+           f"{runtime.resolve(preprocess_impl, dev)}-{maxsim_cuda.route(maxsim_impl, dev)}")
     # tensor and sequence parallelism sum in another order; data parallelism does not
-    for tag, mesh in (("tp", get_tp_mesh()), ("sp", get_sp_mesh())):
+    for tag, mesh in (("tp", runtime.current().tp), ("sp", runtime.current().sp)):
         if mesh is not None:
             key += f"-{tag}{mesh.n_model}"
     return re.sub(r"[^A-Za-z0-9_.-]", "_", key)

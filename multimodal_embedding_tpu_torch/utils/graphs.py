@@ -36,14 +36,14 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import runtime
 from .profiling import KERNELS, Tally
 
 
 def applies(x: torch.Tensor) -> bool:
     """Whether a forward on ``x`` may run as a graph."""
-    from ..models.layers import get_sp_mesh, get_tp_mesh
-
-    return x.is_cuda and not torch.is_grad_enabled() and get_tp_mesh() is None and get_sp_mesh() is None
+    rt = runtime.current()
+    return x.is_cuda and not torch.is_grad_enabled() and rt.tp is None and rt.sp is None
 
 
 # One capture stream a device for the process, as ``torch.cuda.graph`` keeps
@@ -90,11 +90,9 @@ class ShapeGraphs:
         return ShapeGraphs(*copy.deepcopy(self.tallies[1:], memo))
 
     def __call__(self, fn, *args):
-        from ..models.layers import get_attention_impl, get_layer_impl
-
         dev = next(a for a in args if a is not None).device
         key = (tuple(None if a is None else (tuple(a.shape), a.dtype, a.device) for a in args),
-               get_attention_impl(dev), get_layer_impl(), torch.is_inference_mode_enabled())
+               runtime.attention_impl(dev), runtime.layer_impl(), torch.is_inference_mode_enabled())
         g = self.graphs.get(key)
         if g is None:
             return self._capture(key, fn, args, dev)

@@ -23,11 +23,12 @@ import torch_tf32
 from multimodal_embedding_tpu.models import layers as jlayers
 from multimodal_embedding_tpu.ops.attention_pallas import _sdpa_reference
 from multimodal_embedding_tpu.ops.attention_pallas import fused_attention as jax_fused_attention
-from multimodal_embedding_tpu_torch import ops
+from multimodal_embedding_tpu_torch import ops, runtime
 from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.ops import attention_cuda
 from multimodal_embedding_tpu_torch.ops.attention_cuda import fused_attention
 from multimodal_embedding_tpu_torch.utils.profiling import KERNELS
+from tests.torch_impls import impl  # noqa: F401  (the parametrized attention switch)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
@@ -157,16 +158,10 @@ def test_wrapper_rejects_bad_shapes():
         fused_attention(q, q, q, layout="nhwc")
 
 
-@pytest.fixture
-def impls():
-    yield
-    jlayers.set_attention_impl("auto")
-    tlayers.set_attention_impl("auto")
-
-
-@pytest.mark.parametrize("impl,dtype", [("xla", "float32"), ("xla_bf16", "bfloat16"), ("pallas", "float32")])
+@pytest.mark.parametrize("impl,dtype", [("xla", "float32"), ("xla_bf16", "bfloat16"), ("pallas", "float32")],
+                         indirect=["impl"])
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
-def test_attention_core_matches_jax(impls, impl, dtype, causal, masked):
+def test_attention_core_matches_jax(impl, dtype, causal, masked):
     rng = np.random.default_rng(3)
     b, t, h, dh = 2, 21, 4, 16
     arrs = [rng.standard_normal((b, t, h * dh)).astype(np.float32) for _ in range(3)]
@@ -176,8 +171,6 @@ def test_attention_core_matches_jax(impls, impl, dtype, causal, masked):
         km[:, 0] = 1
     jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    jlayers.set_attention_impl(impl)
-    tlayers.set_attention_impl(impl)
     want = jlayers.attention_core(
         *[jnp.asarray(a).astype(jd) for a in arrs], h, causal=causal,
         mask=None if km is None else jnp.asarray(km),
@@ -191,13 +184,13 @@ def test_attention_core_matches_jax(impls, impl, dtype, causal, masked):
     )
 
 
-def test_unported_attention_impl_raises(impls):
+def test_unported_attention_impl_raises():
     # every impl of the JAX package is ported, "flash" included; an
     # unknown name still raises
-    tlayers.set_attention_impl("flash")
-    assert tlayers.get_attention_impl("cpu") == "flash"
-    with pytest.raises(ValueError):
-        tlayers.set_attention_impl("nope")
+    with runtime.using(attention="flash"):
+        assert runtime.attention_impl("cpu") == "flash"
+    with pytest.raises(ValueError), runtime.using(attention="nope"):
+        pass
 
 
 # Small versions of the f32 paths' shapes: the small Qwen3's heads (8 over 4,

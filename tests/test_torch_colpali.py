@@ -26,11 +26,11 @@ from multimodal_embedding_tpu.models import layers as jlayers
 from multimodal_embedding_tpu.models import towers as jtowers
 from multimodal_embedding_tpu.models.arch import full_colpali_config as jax_full_colpali_config
 from multimodal_embedding_tpu_torch.models import gemma as tgemma
-from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.models.arch import full_colpali_config
 from multimodal_embedding_tpu_torch.models.colpali import ColPali, debug_colpali_config
 from multimodal_embedding_tpu_torch.models.decoder_attn import grouped_attention
 from multimodal_embedding_tpu_torch.models.params import params_from_jax
+from tests.torch_impls import impl  # noqa: F401  (the parametrized attention switch)
 
 ATOL = 1e-4
 SUFFIX = np.array([1, 7, 8, 9], np.int32)
@@ -43,15 +43,6 @@ def _as_jax_cfg(cfg):
         embedding_dim=cfg.embedding_dim,
         image_token_id=cfg.image_token_id,
     )
-
-
-@pytest.fixture
-def impl(request):
-    jlayers.set_attention_impl(request.param)
-    tlayers.set_attention_impl(request.param)
-    yield request.param
-    jlayers.set_attention_impl("auto")
-    tlayers.set_attention_impl("auto")
 
 
 @pytest.fixture(scope="module")

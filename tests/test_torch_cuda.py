@@ -138,21 +138,19 @@ def test_map_head_cross_attention_goes_through_the_kernel(dev):
     """MultiHeadAttention with kv= at SigLIP-So400m's width: q comes out of a
     linear on the broadcast probe; the kernel takes its strides, launches
     once, and agrees with the f32-logit einsum path."""
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models import layers
 
     gen = torch.Generator(device=dev).manual_seed(0)
     attn = layers.MultiHeadAttention(1152, 16, gen=gen, device=dev, dtype=torch.bfloat16)
     probe = torch.randn(1, 1, 1152, generator=gen, device=dev).to(torch.bfloat16).expand(4, 1, 1152)
     kv = torch.randn(4, 729, 1152, generator=gen, device=dev).to(torch.bfloat16)
-    try:
-        layers.set_attention_impl("pallas")
+    with runtime.using(attention="pallas"):
         n0 = _count("fused_attention", "fused_attention_f32")
         got = attn(probe, kv=kv)
         assert _count("fused_attention", "fused_attention_f32") == n0 + 1
-        layers.set_attention_impl("xla")
+    with runtime.using(attention="xla"):
         want = attn(probe, kv=kv)
-    finally:
-        layers.set_attention_impl("auto")
     assert got.shape == (4, 1, 1152)
     d = (got.float() - want.float()).abs()
     assert float(d.max()) / float(want.float().abs().max()) <= 1e-2

@@ -19,6 +19,7 @@ import torch
 from multimodal_embedding_tpu.models import layers as jlayers
 from multimodal_embedding_tpu.models.registry import get_models_to_test as jax_models
 from multimodal_embedding_tpu.models.zoo import load_debug_model as jax_load_debug_model
+from multimodal_embedding_tpu_torch import runtime
 from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.models.params import params_from_jax
 from multimodal_embedding_tpu_torch.models.registry import get_models_to_test
@@ -28,11 +29,10 @@ from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 @pytest.fixture
 def impls():
-    saved = (jlayers._ATTENTION_IMPL, tlayers._ATTENTION_IMPL)
     jlayers.set_attention_impl("xla")
-    tlayers.set_attention_impl("flash")
-    yield
-    jlayers._ATTENTION_IMPL, tlayers._ATTENTION_IMPL = saved
+    with runtime.using(attention="flash"):
+        yield
+    jlayers.set_attention_impl("auto")
 
 
 @pytest.mark.parametrize("causal, masked, self_attn", [
@@ -84,9 +84,7 @@ def test_debug_towers_under_flash_match_jax_xla(impls, name):
 def test_fused_layer_under_flash_matches_jax_xla(impls):
     """--layer-impl fused with flash: the stacked-QKV kernel route is the
     "pallas" impl's; flash takes attention_core on the three views."""
-    saved = (jlayers._LAYER_IMPL, tlayers._LAYER_IMPL)
     jlayers.set_layer_impl("xla")
-    tlayers.set_layer_impl("fused")
     try:
         (jinfo,) = jax_models("OpenAI-CLIP-L", 8)
         (tinfo,) = get_models_to_test("OpenAI-CLIP-L", 8)
@@ -95,8 +93,8 @@ def test_fused_layer_under_flash_matches_jax_xla(impls):
         tmodel.model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jmodel.params), device="cpu"))
         px = np.random.default_rng(2).standard_normal((2, 64, 64, 3)).astype(np.float32)
         want = np.asarray(jmodel.image_features(jnp.asarray(px)))
-        with torch.inference_mode():
+        with runtime.using(layer="fused"), torch.inference_mode():
             got = tmodel.model.encode_image(torch.from_numpy(px))
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     finally:
-        jlayers._LAYER_IMPL, tlayers._LAYER_IMPL = saved
+        jlayers.set_layer_impl("auto")

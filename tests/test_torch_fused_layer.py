@@ -16,8 +16,8 @@ package and carried in by ``params_from_jax``. Tolerances, all f32:
 - the benchmark row: ``tests/test_torch_slice.py``'s (scores 1e-4, each
   metric within one query given the JAX package's samples).
 
-The layer and attention switches are module state in both packages: every
-test restores them.
+The JAX package's layer and attention switches are module state, set back
+to "auto" after each use; the port's are set with ``runtime.using``.
 """
 
 import contextlib
@@ -37,6 +37,7 @@ from multimodal_embedding_tpu.models import towers as jtowers
 from multimodal_embedding_tpu.ops.attention_pallas import fused_attention_qkv as jax_attention_qkv
 from multimodal_embedding_tpu.ops.fused_ln_matmul import fused_res_norm_matmul as jax_prologue
 from multimodal_embedding_tpu.ops.layernorm_pallas import fused_layer_norm as jax_layer_norm
+from multimodal_embedding_tpu_torch import runtime
 from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.models.colpali import ColPali, debug_colpali_config
 from multimodal_embedding_tpu_torch.models.params import params_from_jax
@@ -49,16 +50,16 @@ N_IMAGES, ITERS, BATCH, SEED = 32, 20, 16, 42
 
 @contextlib.contextmanager
 def impls(layer: str, attention: str = "xla"):
-    """Both packages' layer and attention switches, restored on exit."""
-    saved = (jlayers._LAYER_IMPL, jlayers._ATTENTION_IMPL, tlayers._LAYER_IMPL, tlayers._ATTENTION_IMPL)
+    """Both packages' layer and attention switches; the JAX package's back at
+    "auto" on exit."""
+    jlayers.set_layer_impl(layer)
+    jlayers.set_attention_impl(attention)
     try:
-        jlayers.set_layer_impl(layer)
-        tlayers.set_layer_impl(layer)
-        jlayers.set_attention_impl(attention)
-        tlayers.set_attention_impl(attention)
-        yield
+        with runtime.using(layer=layer, attention=attention):
+            yield
     finally:
-        jlayers._LAYER_IMPL, jlayers._ATTENTION_IMPL, tlayers._LAYER_IMPL, tlayers._ATTENTION_IMPL = saved
+        jlayers.set_layer_impl("auto")
+        jlayers.set_attention_impl("auto")
 
 
 def _t(a):
@@ -283,11 +284,11 @@ def test_fused_stack_gradients_match_the_ports_xla_stack():
 
 def test_layer_impl_switch():
     with impls("auto"):
-        assert tlayers.get_layer_impl() == jlayers.get_layer_impl() == "xla"
-        tlayers.set_layer_impl("fused")
-        assert tlayers.get_layer_impl() == "fused"
-        with pytest.raises(ValueError):
-            tlayers.set_layer_impl("pallas")
+        assert runtime.layer_impl() == jlayers.get_layer_impl() == "xla"
+        with runtime.using(layer="fused"):
+            assert runtime.layer_impl() == "fused"
+        with pytest.raises(ValueError), runtime.using(layer="pallas"):
+            pass
 
 
 def _as_jax_cfg(cfg):
@@ -383,17 +384,21 @@ def test_fused_scores_and_csv_row_match_jax(slice_pair):
     assert set(json.loads(got["_failure_analysis"])) == set(json.loads(want["_failure_analysis"]))
 
 
-def test_port_cli_runs_the_fused_layer(tmp_path):
+def test_port_cli_runs_the_fused_layer(tmp_path, monkeypatch):
     import pandas as pd
 
     from multimodal_embedding_tpu_torch.cli import main as tcli
 
+    prologue, calls = fused_ln_matmul_cuda.fused_res_norm_matmul, []
+    monkeypatch.setattr(fused_ln_matmul_cuda, "fused_res_norm_matmul",
+                        lambda *a, **kw: calls.append(1) or prologue(*a, **kw))
     out = tmp_path / "fused.csv"
     with impls("auto", "auto"):
         rc = tcli.main(["--device", "cpu", "--dataset", "synthetic", "--debug-models", "--models", "OpenAI-CLIP-L",
                         "--sample-size", "16", "--bootstrap-iterations", "8", "--batch-size", "8",
                         "--layer-impl", "fused", "--output", str(out)])
-        assert tlayers.get_layer_impl() == "fused"
+        # the run took the fused layer, and the CLI put back the settings it found
+        assert calls and runtime.layer_impl() == "xla"
     assert rc == 0
     df = pd.read_csv(out)
     want_cols = ["Model", "Weights"] + [

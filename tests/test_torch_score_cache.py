@@ -14,8 +14,8 @@ import pandas as pd
 
 from multimodal_embedding_tpu.data.synthetic import synthetic_retrieval_dataset
 from multimodal_embedding_tpu.stats import score_cache as jcache
+from multimodal_embedding_tpu_torch import runtime
 from multimodal_embedding_tpu_torch.cli import main as tcli
-from multimodal_embedding_tpu_torch.models import layers
 from multimodal_embedding_tpu_torch.stats import score_cache
 from tests.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -58,16 +58,10 @@ def test_other_numerics_miss(tmp_path):
     assert score_cache.load_scores(str(tmp_path), "SigLIP-400M", RECORDS, device="cpu") is None
     assert score_cache.load_scores(str(tmp_path), "OpenAI-CLIP-L", RECORDS[:5], device="cpu") is None
     for impl in ("flash", "xla_bf16", "pallas"):
-        layers.set_attention_impl(impl)
-        try:
+        with runtime.using(attention=impl):
             assert load() is None, impl
-        finally:
-            layers.set_attention_impl("auto")
-    layers.set_layer_impl("fused")
-    try:
+    with runtime.using(layer="fused"):
         assert load() is None
-    finally:
-        layers.set_layer_impl("auto")
 
 
 def test_neither_package_reads_the_others_files(tmp_path):

@@ -26,6 +26,7 @@ from multimodal_embedding_tpu_torch.models import layers as tlayers
 from multimodal_embedding_tpu_torch.models.params import params_from_jax
 from multimodal_embedding_tpu_torch.models.towers import DualEncoder
 from multimodal_embedding_tpu_torch.models.zoo import debug_dual_config
+from tests.torch_impls import impl  # noqa: F401  (the parametrized attention switch)
 
 ATOL = 1e-4
 
@@ -40,15 +41,6 @@ def _as_jax_cfg(cfg):
         text=jtowers.TextConfig(**dataclasses.asdict(cfg.text)),
         family=cfg.family,
     )
-
-
-@pytest.fixture
-def impl(request):
-    jlayers.set_attention_impl(request.param)
-    tlayers.set_attention_impl(request.param)
-    yield request.param
-    jlayers.set_attention_impl("auto")
-    tlayers.set_attention_impl("auto")
 
 
 def _pair(cfg, seed=0):

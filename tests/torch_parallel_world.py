@@ -79,12 +79,6 @@ def join_world(procs: list, work: Path) -> list[dict]:
 # --- the ranks -----------------------------------------------------------------
 
 
-def _impl(name: str):
-    from multimodal_embedding_tpu_torch.models import layers
-
-    layers.set_attention_impl(name)
-
-
 def _gathered(x, mesh, dim):
     from multimodal_embedding_tpu_torch.parallel.mesh import all_gather_cat
 
@@ -95,7 +89,7 @@ def parallel_suite(inp: dict) -> dict:
     import numpy as np
     import torch
 
-    from multimodal_embedding_tpu_torch.models import layers
+    from multimodal_embedding_tpu_torch import runtime
     from multimodal_embedding_tpu_torch.models.colpali import ColPali, debug_colpali_config
     from multimodal_embedding_tpu_torch.models.encode import AsyncImageStager, EncodingEngine, stage_images
     from multimodal_embedding_tpu_torch.models.gemma import Gemma, GemmaConfig
@@ -117,52 +111,49 @@ def parallel_suite(inp: dict) -> dict:
     gen = torch.Generator().manual_seed(0)
 
     # TP(2) x DP(2): the dual encoder, the kernel route (its plain version here)
-    _impl("pallas")
-    layers.set_tp_mesh(mesh22)
-    model = DualEncoder(debug_dual_config("dense"), device="cpu")
-    model.load_state_dict(inp["dual_sd"])
-    shard_params_tp(model, mesh22)
-    out["tp_q_shape"] = tuple(model.vision.encoder.layers[0].attn.q.w.shape)
+    with runtime.using(attention="pallas", tp=mesh22):
+        model = DualEncoder(debug_dual_config("dense"), device="cpu")
+        model.load_state_dict(inp["dual_sd"])
+        shard_params_tp(model, mesh22)
+        out["tp_q_shape"] = tuple(model.vision.encoder.layers[0].attn.q.w.shape)
+        with torch.inference_mode():
+            out["tp_img"] = sharded_batch_apply(model.encode_image, inp["px"], mesh=mesh22, batch_size=8)
+            out["tp_txt"] = sharded_batch_apply(model.encode_text, inp["ids"], mesh=mesh22, batch_size=8)
+
+            # packed attention on this rank's heads, batch over the data axis
+            d = inp["qf"].shape[-1]
+            cols = slice(mesh22.model_rank * d // 2, (mesh22.model_rank + 1) * d // 2)
+
+            def attn(q, k, v, m):
+                return _gathered(attention_core(q[..., cols], k[..., cols], v[..., cols], 8 // 2, mask=m), mesh22, -1)
+
+            out["tp_attn"] = sharded_batch_apply(attn, (inp["qf"], inp["kf"], inp["vf"], inp["attn_mask"]),
+                                                 mesh=mesh22, batch_size=4)
+
+            # a whole encoder stack under TP, the kernel route
+            enc = Encoder(2, 512, 8, 256, "gelu", 1e-5, gen=gen, device="cpu", dtype=torch.float32)
+            enc.load_state_dict(inp["enc_sd"])
+            shard_params_tp(enc, mesh22)
+            out["tp_encoder"] = sharded_batch_apply(enc, inp["enc_x"], mesh=mesh22, batch_size=4)
+
+            # 6 heads over 4 ranks: kept whole, every rank runs the one-rank layer
+            with runtime.using(tp=mesh14):
+                fb = MultiHeadAttention(384, 6, gen=gen, device="cpu", dtype=torch.float32)
+                fb.load_state_dict(inp["fb_sd"])
+                shard_params_tp(fb, mesh14)
+                out["fb_whole"] = (tuple(fb.q.w.shape), fb.n_heads, fb.o.reduce_group is None)
+                out["fb"] = fb(inp["fb_x"])
+
+            # Gemma under TP(2) x DP(2): query heads split, the one KV head on both
+            gcfg = GemmaConfig(vocab_size=64, dim=32, layers=2, heads=4, kv_heads=1, head_dim=8, mlp_dim=64)
+            gemma = Gemma(gcfg, gen=gen, device="cpu", dtype=torch.float32)
+            gemma.load_state_dict(inp["gemma_sd"])
+            whole = Gemma(gcfg, gen=gen, device="cpu", dtype=torch.float32)
+            whole.load_state_dict(inp["gemma_sd"])
+            shard_params_tp(gemma, mesh22)
+            out["tp_gemma"] = sharded_batch_apply(gemma, (inp["gemma_x"], inp["gemma_mask"]), mesh=mesh22, batch_size=4)
+
     with torch.inference_mode():
-        out["tp_img"] = sharded_batch_apply(model.encode_image, inp["px"], mesh=mesh22, batch_size=8)
-        out["tp_txt"] = sharded_batch_apply(model.encode_text, inp["ids"], mesh=mesh22, batch_size=8)
-
-        # packed attention on this rank's heads, batch over the data axis
-        d = inp["qf"].shape[-1]
-        cols = slice(mesh22.model_rank * d // 2, (mesh22.model_rank + 1) * d // 2)
-
-        def attn(q, k, v, m):
-            return _gathered(attention_core(q[..., cols], k[..., cols], v[..., cols], 8 // 2, mask=m), mesh22, -1)
-
-        out["tp_attn"] = sharded_batch_apply(attn, (inp["qf"], inp["kf"], inp["vf"], inp["attn_mask"]),
-                                             mesh=mesh22, batch_size=4)
-
-        # a whole encoder stack under TP, the kernel route
-        enc = Encoder(2, 512, 8, 256, "gelu", 1e-5, gen=gen, device="cpu", dtype=torch.float32)
-        enc.load_state_dict(inp["enc_sd"])
-        shard_params_tp(enc, mesh22)
-        out["tp_encoder"] = sharded_batch_apply(enc, inp["enc_x"], mesh=mesh22, batch_size=4)
-
-        # 6 heads over 4 ranks: kept whole, every rank runs the one-rank layer
-        layers.set_tp_mesh(mesh14)
-        fb = MultiHeadAttention(384, 6, gen=gen, device="cpu", dtype=torch.float32)
-        fb.load_state_dict(inp["fb_sd"])
-        shard_params_tp(fb, mesh14)
-        out["fb_whole"] = (tuple(fb.q.w.shape), fb.n_heads, fb.o.reduce_group is None)
-        out["fb"] = fb(inp["fb_x"])
-
-        # Gemma under TP(2) x DP(2): query heads split, the one KV head on both
-        layers.set_tp_mesh(mesh22)
-        gcfg = GemmaConfig(vocab_size=64, dim=32, layers=2, heads=4, kv_heads=1, head_dim=8, mlp_dim=64)
-        gemma = Gemma(gcfg, gen=gen, device="cpu", dtype=torch.float32)
-        gemma.load_state_dict(inp["gemma_sd"])
-        whole = Gemma(gcfg, gen=gen, device="cpu", dtype=torch.float32)
-        whole.load_state_dict(inp["gemma_sd"])
-        shard_params_tp(gemma, mesh22)
-        out["tp_gemma"] = sharded_batch_apply(gemma, (inp["gemma_x"], inp["gemma_mask"]), mesh=mesh22, batch_size=4)
-        layers.set_tp_mesh(None)
-        _impl("auto")
-
         # sp_attention over 4 ranks against the JAX function
         def sp(q, k, v, mask=None, causal=False):
             km = None if mask is None else shard_tokens(mask, mesh14, dim=1)
@@ -190,17 +181,17 @@ def parallel_suite(inp: dict) -> dict:
         out["cp_img_alone"] = cp.image_fwd(inp["cp_px"])
         out["cp_txt_alone"] = cp.text_fwd(inp["cp_ids"], inp["cp_mask"])
         for tag, mesh in (("sp2", mesh22), ("sp4", mesh14)):
-            layers.set_sp_mesh(mesh)
             for fwd, args in (("img", (inp["cp_px"],)), ("txt", (inp["cp_ids"], inp["cp_mask"]))):
                 calls["n"] = 0
-                out[f"cp_{fwd}_{tag}"] = (cp.image_fwd if fwd == "img" else cp.text_fwd)(*args)
+                with runtime.using(sp=mesh):
+                    out[f"cp_{fwd}_{tag}"] = (cp.image_fwd if fwd == "img" else cp.text_fwd)(*args)
                 out[f"cp_{fwd}_{tag}_sp_calls"] = calls["n"]
         # Gemma over 11 tokens and 4 ranks: the whole sequence on every rank
         out["gemma11_alone"] = whole(inp["gemma11_x"])
         calls["n"] = 0
-        out["gemma11_sp4"] = whole(inp["gemma11_x"], sp=psp.sp_mesh_for(11))
+        with runtime.using(sp=mesh14):
+            out["gemma11_sp4"] = whole(inp["gemma11_x"], sp=psp.sp_mesh_for(11))
         out["gemma11_sp_calls"] = calls["n"]
-        layers.set_sp_mesh(None)
         psp.sp_attention = real_sp_attention
 
         # scoring and the bootstrap on a data mesh of 4 against one rank
