@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cases maxsim,preprocess    # the build and these phase-2 cases only
                                                       # (sets: activation, attention, attention_qkv,
-                                                      # maxsim, prologue, layernorm, preprocess)
+                                                      # maxsim, moe_glue, prologue, layernorm, preprocess)
     python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
@@ -34,7 +34,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
      and the b8 480x640 preprocess; the MLP activation at fc1's output in the
      benchmark cells' towers, ViT-L b32, CLIP text b128, So400m b32 and
      SigLIP text b128, at ViT-H b32 and on a ragged f32 tensor, each beside
-     its plain composition and, for the GELUs, ``F.gelu``),
+     its plain composition and, for the GELUs, ``F.gelu``; the MoE layer's
+     SwiGLU and combine kernels at a Kimi-VL-A3B page batch, the routed,
+     shared and dense SwiGLU and the combine with its addend, each beside
+     the ATen chain it replaced, with ``index_put`` and the gather of the
+     routed rows timed alone, and a ``ColPali-KimiVL-A3B`` caption batch at
+     full width whose CUDA graph replays are bit-equal to the eager forward
+     and add its launch counts, 53 and 26),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -49,7 +55,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
      then the other five benchmark models in one CLI run (LAION-CLIP-H,
      MetaCLIP-H14, Apple-DFN5B-H, SigLIP-400M, Jina-CLIP-v1; 128 images, 100
      bootstrap iterations), each model's weights released before the next
-     loads; each model's launch counts are set to 0 just before its
+     loads, then ColPali-KimiVL-A3B (the MoE decoder: 16 pages, 20 bootstrap
+     iterations; 53 ``moe_swiglu`` and 26 ``moe_combine`` launches a decoder
+     forward, none on any other path); each model's launch counts are set to 0 just before its
      benchmark and read just after, every kernel of its path must have
      launched (Jina's towers have no attention kernel route: preprocess
      only), and its QPS and peak device memory are printed;
@@ -269,6 +277,12 @@ OTHER_MODELS = ("LAION-CLIP-H", "MetaCLIP-H14", "Apple-DFN5B-H", "SigLIP-400M", 
 OTHER_CLI_ARGS = [
     "--dataset", "synthetic", "--arch-models", "--models", ",".join(OTHER_MODELS),
     "--sample-size", "128", "--bootstrap-iterations", "100",
+]
+# the DeepSeek ColPali (a MoE decoder: the MoE SwiGLU and combine kernels'
+# path), batch 8 pages
+KIMI_CLI_ARGS = [
+    "--dataset", "synthetic", "--arch-models", "--models", "ColPali-KimiVL-A3B",
+    "--sample-size", "16", "--bootstrap-iterations", "20",
 ]
 # phase 6: HF-layout checkpoints at full width, converted by the port
 CONVERTED_MODELS = ("OpenAI-CLIP-L", "SigLIP-400M", "ColPali-v1.3", "Jina-CLIP-v1")
@@ -853,6 +867,181 @@ def _activation_case(name, *, m, n, act, dtype, rng):
     return case
 
 
+def _moe_swiglu_case(name, *, m, width, rng):
+    """The MoE SwiGLU kernel on normals x 3 at [rows, 2I]: bit-equal to its
+    plain composition; its device time against the bytes bound (one read of
+    h, one write of [rows, I]) and the plain composition's (the f32 cast,
+    SiLU, the product, the cast back: the ATen chain it replaces)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import moe as tmoe
+    from multimodal_embedding_tpu_torch.ops import moe_cuda
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    h = (torch.randn((m, width), generator=gen, device=dev) * 3).to(torch.bfloat16)
+    y = moe_cuda.swiglu(h)
+    want = tmoe.swiglu_plain(h)
+    differ = int((y.view(torch.int16) != want.view(torch.int16)).sum())
+    bit_equal = 1.0 - differ / y.numel()
+    del y, want
+    require(differ == 0, f"moe swiglu {name}: {differ} elements differ from the plain version")
+    nbytes = (m * width + m * width // 2) * h.element_size()
+    bms, by = bound_ms(0.0, nbytes, "f32_flops")
+    dev_ms = device_ms(lambda: moe_cuda.swiglu(h))
+    case = {"case": name, "op": "swiglu", "shape": [m, width], "dtype": "bfloat16", "bit_equal": bit_equal,
+            "max_abs_err": 0.0, "ms": cuda_time_ms(lambda: moe_cuda.swiglu(h)), "device_ms": dev_ms,
+            "bound_ms": bms, "bound_by": by, "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms,
+            "plain_ms": cuda_time_ms(lambda: tmoe.swiglu_plain(h)),
+            "plain_device_ms": device_ms(lambda: tmoe.swiglu_plain(h)), "library_ms": None}
+    print(f"[moe_glue] {json.dumps(case)}")
+    return case
+
+
+def _bf16_step(x):
+    """The spacing of bf16 values at |x| (0 at 0)."""
+    import torch
+
+    a = x.float().abs()
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8), torch.zeros_like(a))
+
+
+def _moe_combine_case(name, *, n, k, d, rng):
+    """The MoE combine kernel with the shared experts' addend at n tokens, k
+    choices, width d, routed by a Kimi-VL-A3B router (64 experts, weights
+    drawn as the arch model draws them): bit-equal to the choice-order f32
+    composition; without the addend, apart from the plain ``combine`` (ATen's
+    order of the sum) by at most one bf16 step of the result plus the two f32
+    orders' bound, 2 (k - 1) 2^-24 sum_j |w_j y_j| (more than a bf16 step of a
+    result where the terms cancel), with the largest gap in bf16 steps and
+    the share of bit-equal elements; its device time against the bytes bound (the k sorted rows,
+    the addend, the row indices and weights read once, the output written
+    once) and the parent's ATen chain's (the permutation back by
+    ``index_put``, the cast, the weighted product, the sum over the choices,
+    the cast back, the add); ``index_put`` alone and the gather ``x[r.token]``
+    that feeds the first grouped product alone (the two share ATen's
+    ``index_elementwise_kernel``)."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import moe as tmoe
+    from multimodal_embedding_tpu_torch.ops import moe_cuda
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    x = torch.randn((n, d), generator=gen, device=dev).to(bf16)
+    w_router = torch.randn((64, d), generator=gen, device=dev) * 0.02
+    bias = torch.randn((64,), generator=gen, device=dev) * 0.02
+    r = tmoe.route(x, w_router, bias, top_k=k, scale=2.446, normalize=True)
+    y = (torch.randn((n * k, d), generator=gen, device=dev) * 0.05).to(bf16)
+    shared = (torch.randn((n, d), generator=gen, device=dev) * 0.05).to(bf16)
+    # each sorted row's place among the unsorted (token * k + choice): rows inverted
+    order = torch.empty_like(r.token).scatter_(0, r.rows.view(-1), torch.arange(n * k, device=dev))
+
+    def kernel():
+        return moe_cuda.combine(y, r.rows, r.weights, shared)
+
+    def choice_order():
+        prod = y[r.rows].float() * r.weights[..., None]
+        acc = prod[:, 0]
+        for j in range(1, k):
+            acc = acc + prod[:, j]
+        return (acc.to(bf16).float() + shared.float()).to(bf16)
+
+    def parent_chain():
+        unsorted = torch.empty_like(y)
+        unsorted[order] = y
+        return (unsorted.view(n, k, -1).float() * r.weights[..., None]).sum(dim=1).to(bf16) + shared
+
+    def index_put():
+        unsorted = torch.empty_like(y)
+        unsorted[order] = y
+        return unsorted
+
+    got = kernel()
+    differ = int((got.view(torch.int16) != choice_order().view(torch.int16)).sum())
+    err = float((got.float() - parent_chain().float()).abs().max())
+    routed, plain = moe_cuda.combine(y, r.rows, r.weights), tmoe.combine_plain(y, r)
+    gap = (routed.float() - plain.float()).abs()
+    terms = (y[r.rows].float() * r.weights[..., None]).abs().sum(dim=1)
+    slack = float((gap - _bf16_step(torch.maximum(routed.float().abs(), plain.float().abs()))
+                   - 2 * (k - 1) * 2.0**-24 * terms).max())
+    ri, pi = routed.view(torch.int16).to(torch.int32), plain.view(torch.int16).to(torch.int32)
+    ulps = int((torch.where(ri < 0, -(ri & 0x7FFF), ri) - torch.where(pi < 0, -(pi & 0x7FFF), pi)).abs().max())
+    plain_equal = float(int((ri == pi).sum()) / ri.numel())
+    del got, routed, plain, gap, terms, ri, pi
+    require(differ == 0 and slack <= 0,
+            f"moe combine {name}: {differ} elements differ from the choice-order sum; "
+            f"{slack} past the bound on the gap to the plain one")
+    bit_equal = 1.0
+    nbytes = (n * k * d + 2 * n * d) * y.element_size() + n * k * (8 + 4)
+    bms, by = bound_ms(0.0, nbytes, "f32_flops")
+    dev_ms = device_ms(kernel)
+    case = {"case": name, "op": "combine", "n": n, "k": k, "d": d, "dtype": "bfloat16", "bit_equal": bit_equal,
+            "routed_max_steps_vs_plain": ulps, "routed_bit_equal_to_plain": plain_equal, "max_abs_err": err,
+            "ms": cuda_time_ms(kernel), "device_ms": dev_ms,
+            "bound_ms": bms, "bound_by": by, "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms,
+            "plain_ms": cuda_time_ms(parent_chain), "plain_device_ms": device_ms(parent_chain),
+            "index_put_device_ms": device_ms(index_put), "gather_device_ms": device_ms(lambda: x[r.token]),
+            "library_ms": None}
+    print(f"[moe_glue] {json.dumps(case)}")
+    return case
+
+
+def _moe_graph_case(name, *, rng):
+    """A caption batch of the ``ColPali-KimiVL-A3B`` decoder at full width
+    and depth (arch-random weights on the card) through ``text_fwd``: its
+    CUDA graph captured, then replayed, each call bit-equal to the eager
+    forward and adding the eager forward's launch counts, 53 ``moe_swiglu``
+    and 26 ``moe_combine``. The launches of the main path are phase 3's."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.models.arch import full_colpali_deepseek_config
+    from multimodal_embedding_tpu_torch.models.colpali import ColPali
+    from multimodal_embedding_tpu_torch.ops import launch_counts
+
+    keys = ("moe_swiglu", "moe_combine", "grouped_mm")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+
+    def counted(fn, *args):
+        before = launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return out, {key: after[key] - before[key] for key in keys}
+
+    t0 = time.perf_counter()
+    cfg = full_colpali_deepseek_config()
+    model = ColPali(cfg, COLPALI_SUFFIX_IDS.tolist(), seed=0, device=dev, dtype=torch.bfloat16)
+    lm = model.gemma.cfg
+    want = {"moe_swiglu": 2 * lm.moe_layers + lm.first_dense, "moe_combine": lm.moe_layers,
+            "grouped_mm": 2 * lm.moe_layers}
+    ids = torch.randint(1, lm.vocab_size, (32, 24), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    mask[16:, 19:] = 0
+    ids = ids * mask
+    with torch.inference_mode():
+        eager_out, eager = counted(model._text, ids, mask)
+        graphed = [counted(model.text_fwd, ids, mask) for _ in range(3)]  # capture, then replays
+    replay_equal = all(torch.equal(out, eager_out) for out, _ in graphed)
+    calls = {"eager": eager, "graph_calls": [c for _, c in graphed]}
+    require(eager == want and all(c == want for _, c in graphed) and replay_equal,
+            f"moe graph {name}: counts {calls}, want {want} a forward; replays bit-equal: {replay_equal}")
+    del model, eager_out, graphed
+    torch.cuda.empty_cache()
+    case = {"case": name, "op": "graph", "want_a_forward": want, "caption": calls,
+            "caption_replay_bit_equal": replay_equal, "seconds": time.perf_counter() - t0}
+    print(f"[moe_glue] {json.dumps(case)}")
+    return case
+
+
+def _moe_glue_case(name, *, op, rng, **kw):
+    """One ``moe_glue`` case: ``op`` "swiglu", "combine" or "graph"."""
+    return {"swiglu": _moe_swiglu_case, "combine": _moe_combine_case, "graph": _moe_graph_case}[op](name, **kw, rng=rng)
+
+
 def attention_cases() -> list[tuple[str, dict]]:
     import torch
 
@@ -1030,6 +1219,19 @@ def activation_cases() -> list[tuple[str, dict]]:
     ]
 
 
+def moe_glue_cases() -> list[tuple[str, dict]]:
+    # colpali-kimi-vl-a3b.coco-maxsim's page batch: 8 pages of 1030 tokens,
+    # top-6 of 64 experts of width 1408, 2 shared, the dense layer's 11264
+    n = 8 * 1030
+    return [
+        ("routed swiglu", dict(op="swiglu", m=6 * n, width=2 * 1408)),
+        ("shared swiglu", dict(op="swiglu", m=n, width=2 * 2 * 1408)),
+        ("dense swiglu", dict(op="swiglu", m=n, width=2 * 11264)),
+        ("combine", dict(op="combine", n=n, k=6, d=2048)),
+        ("ColPali-KimiVL-A3B caption graph", dict(op="graph")),
+    ]
+
+
 def preprocess_cases() -> list[tuple[str, dict]]:
     cases = [(f"OpenAI-CLIP-L shortest_edge {h}x{w}->336", dict(h=h, w=w, b=64))
              for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
@@ -1067,6 +1269,7 @@ def maxsim_cases() -> list[tuple[str, dict]]:
 # --cases names: (case list, the function that runs one case, its print tag)
 CASE_SETS = {
     "activation": (activation_cases, "_activation_case", "activation"),
+    "moe_glue": (moe_glue_cases, "_moe_glue_case", "moe_glue"),
     "preprocess": (preprocess_cases, "_preprocess_case", "preprocess"),
     "maxsim": (maxsim_cases, "_maxsim_case", "maxsim"),
     "attention": (attention_cases, "_attention_case", "attention"),
@@ -1116,6 +1319,11 @@ def phase_kernels() -> list[dict]:
     attn_qkv = [_attention_qkv_case(name, **kw, rng=rng) for name, kw in attention_qkv_cases()]
     ln = [_layer_norm_case(name, **kw, rng=rng) for name, kw in layernorm_cases()]
     act = [_activation_case(name, **kw, rng=rng) for name, kw in activation_cases()]
+    torch.cuda.empty_cache()
+    moe = [_moe_glue_case(name, **kw, rng=rng) for name, kw in moe_glue_cases()]
+    moe_swiglu = [c for c in moe if c["op"] == "swiglu"]
+    (moe_combine,) = [c for c in moe if c["op"] == "combine"]
+    (moe_graph,) = [c for c in moe if c["op"] == "graph"]
     root = "multimodal_embedding_tpu_torch/csrc"
     # the f32 bodies are kernels of their own (flash_f32_kernel, tf32x3_kernel)
     # with their own launch counts: their cases and headlines apart
@@ -1153,6 +1361,12 @@ def phase_kernels() -> list[dict]:
         {"name": "mlp_activation", "route": "cuda", "source": f"{root}/activation.cu",
          "replaces": "XLA's fusion of multimodal_embedding_tpu/models/layers.py:425 (no Pallas kernel)",
          **_headline(act[0]), "cases": act},
+        {"name": "moe_swiglu", "route": "cuda", "source": f"{root}/moe.cu",
+         "replaces": "none (the JAX package has no MoE layer): ops/moe.py:swiglu_plain's ATen chain",
+         "path": "the ColPali-KimiVL-A3B decoder", **_headline(moe_swiglu[0]), "cases": moe_swiglu},
+        {"name": "moe_combine", "route": "cuda", "source": f"{root}/moe.cu",
+         "replaces": "none (the JAX package has no MoE layer): the index_put, f32 product, sum and add of ops/moe.py",
+         "path": "the ColPali-KimiVL-A3B decoder", **_headline(moe_combine), "cases": [moe_combine, moe_graph]},
     ]
 
 
@@ -1234,6 +1448,36 @@ def _main_path(args: list[str], csv_name: str, names_for) -> list[dict]:
     return runs
 
 
+def _kimi_main_path() -> tuple[dict, int]:
+    """``ColPali-KimiVL-A3B`` through the CLI (``_main_path``): its run and
+    the decoder forwards of its benchmark, every ``encode_image`` and
+    ``encode_text`` call of the model (the caption batches' graph replays
+    among them), counted in the window of its launch counts."""
+    from multimodal_embedding_tpu_torch.cli import main as cli
+    from multimodal_embedding_tpu_torch.models.colpali import ColPali
+
+    forwards = [0]
+    image, text, bench = ColPali.encode_image, ColPali.encode_text, cli.run_bootstrap_benchmark
+
+    def counting(fn):
+        def call(self, *a, **kw):
+            forwards[0] += 1
+            return fn(self, *a, **kw)
+        return call
+
+    def benchmarking(*a, **kw):  # inside _main_path's reset of the launch counts
+        forwards[0] = 0
+        return bench(*a, **kw)
+
+    ColPali.encode_image, ColPali.encode_text = counting(image), counting(text)
+    cli.run_bootstrap_benchmark = benchmarking
+    try:
+        (kimi,) = _main_path(KIMI_CLI_ARGS, "kimi.csv", lambda m: ("moe_swiglu", "moe_combine", "grouped_mm"))
+    finally:
+        ColPali.encode_image, ColPali.encode_text, cli.run_bootstrap_benchmark = image, text, bench
+    return kimi, forwards[0]
+
+
 def phase_main_path(kernels: list[dict]) -> None:
     import torch
 
@@ -1287,15 +1531,35 @@ def phase_main_path(kernels: list[dict]) -> None:
         f"{r['model']} QPS={float(r['row']['QPS'])} peak_memory_GB={r['peak_bytes'] / 1e9:.3f} "
         f"attention={r['counts']['fused_attention']} preprocess={r['counts']['preprocess']} "
         f"mlp_activation={r['counts']['mlp_activation']}" for r in others))
+    torch.cuda.empty_cache()
+    # the MoE decoder: 53 moe_swiglu (26 routed, 26 shared, dense layer 0) and
+    # 26 moe_combine a forward; none on any other path
+    kimi, forwards = _kimi_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kimi_counts = kimi["counts"]
+    kimi_want = {"moe_swiglu": 53 * forwards, "moe_combine": 26 * forwards, "grouped_mm": 52 * forwards}
+    require(forwards > 0 and {key: kimi_counts[key] for key in kimi_want} == kimi_want,
+            f"ColPali-KimiVL-A3B main path: launches {kimi_counts}, want {kimi_want} ({forwards} decoder forwards)")
+    require(torch.cuda.memory_allocated() < base + (1 << 30),
+            f"ColPali-KimiVL-A3B left {torch.cuda.memory_allocated()} bytes in use")
+    print(f"[main] ColPali-KimiVL-A3B QPS={float(kimi['row']['QPS'])} peak_memory_GB={kimi['peak_bytes'] / 1e9:.3f} "
+          f"decoder_forwards={forwards} moe_swiglu={kimi_counts['moe_swiglu']} "
+          f"moe_combine={kimi_counts['moe_combine']} grouped_mm={kimi_counts['grouped_mm']}")
     paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts,
              **{r["model"]: r["counts"] for r in others}}
+    for name in ("moe_swiglu", "moe_combine", "grouped_mm"):
+        require(all(c[name] == 0 for c in paths.values()), f"{name} launched off the MoE decoder: {paths}")
+    paths["ColPali-KimiVL-A3B"] = kimi_counts
     for k in kernels:
         # each kernel's launches on the path that runs it: ColPali for
         # attention, preprocess and MaxSim, the fused CLIP-L path for the
-        # prologue and stacked-QKV attention, CLIP-L for the MLP activation;
-        # no path runs fused_layer_norm (0)
+        # prologue and stacked-QKV attention, CLIP-L for the MLP activation,
+        # ColPali-KimiVL-A3B for the MoE SwiGLU and combine; no path runs
+        # fused_layer_norm (0)
         path = (fused_counts if k["name"] in ("fused_res_norm_matmul", "fused_attention_qkv", "fused_layer_norm")
-                else clip_counts if k["name"] == "mlp_activation" else counts)
+                else clip_counts if k["name"] == "mlp_activation"
+                else kimi_counts if k["name"] in ("moe_swiglu", "moe_combine") else counts)
         k["launches"] = path[k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     torch.cuda.empty_cache()

@@ -21,7 +21,10 @@ The equations are those of ``transformers``' ``DeepseekV3Model``:
   layer the routed experts (``ops/moe.py``: sigmoid routing with a
   correction bias for the choice, ``top_k`` of ``n_experts``, normalized
   weights times ``routed_scale``) plus ``n_shared`` shared experts, one
-  SwiGLU MLP of ``n_shared * moe_dim``;
+  SwiGLU MLP of ``n_shared * moe_dim``; every SwiGLU activation (the dense
+  layers', the routed and the shared experts') is ``ops/moe.py:swiglu``, one
+  kernel on the card, and the routed sum and the shared output are added in
+  the combine's kernel;
 - no scale on the token embeddings; no LM head is held (ColPali reads the
   final hidden states).
 
@@ -49,7 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.moe import moe
+from ..ops.moe import moe, swiglu
 from ..utils.profiling import Tally
 from .decoder import DecoderLayer, DecoderLM
 from .decoder_attn import grouped_attention
@@ -141,9 +144,9 @@ def rope_interleaved(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu_mlp(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
-    """``down(silu(x @ gate) * (x @ up))``, the activation in f32 rounded once."""
-    g, u = (x @ gate_up).float().chunk(2, dim=-1)
-    return (F.silu(g) * u).to(x.dtype) @ down
+    """``down(silu(x @ gate) * (x @ up))``, the activation in f32 rounded once
+    (``ops/moe.py:swiglu``: the kernel on the card)."""
+    return swiglu(x @ gate_up) @ down
 
 
 def _param(shape, gen, device, dtype, *, std: float | None = 0.02) -> nn.Parameter:

@@ -9,10 +9,12 @@ from ..utils.profiling import KERNELS
 # (``ops/moe.py``, ``torch._grouped_mm``: a library kernel, counted beside
 # the port's own). ``fused_attention_wgmma`` counts again each bf16 attention
 # launch (``fused_attention`` or ``fused_attention_qkv``) that ran the
-# warpgroup body (``attention_cuda.uses_wgmma``).
+# warpgroup body (``attention_cuda.uses_wgmma``). ``moe_swiglu`` and
+# ``moe_combine`` are the DeepSeek decoder's SwiGLU activations and MoE
+# combines (``ops/moe_cuda.py``): 53 and 26 a Kimi-VL-A3B forward.
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
                "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm",
-               "fused_attention_wgmma")
+               "fused_attention_wgmma", "moe_swiglu", "moe_combine")
 
 
 def launch_counts() -> dict[str, int]:

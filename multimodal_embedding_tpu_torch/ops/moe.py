@@ -14,7 +14,7 @@ and ``DeepseekV3MoE``), for one expert group (``n_group`` = ``topk_group`` =
   (+ 1e-20) where ``normalize``, times ``scale``;
 - each expert a SwiGLU MLP, ``down(silu(gate x) * up x)``; the token's
   output the weighted sum of its experts' outputs, accumulated in f32 and
-  rounded once to the hidden dtype.
+  rounded once to the hidden dtype, then the shared experts' output added.
 
 The routed rows (token, choice) are sorted by expert (stable, so a token's
 rows keep their order within an expert), the experts' row ends found by a
@@ -24,6 +24,14 @@ grouped product over the sorted rows. On the card that is
 ``torch._grouped_mm`` on bf16, counted as ``grouped_mm`` in
 ``ops.launch_counts()``; on CPU tensors, and for any other dtype, the plain
 version: one product an expert over its slice of rows.
+
+SwiGLU between the two products and the weighted combine (with the shared
+experts' output added) are one hand-written pass each on CUDA tensors
+(``ops/moe_cuda.py``, ``csrc/moe.cu``: read in the hidden dtype, f32 math,
+every rounding point of the plain versions kept); on CPU tensors their plain
+versions, :func:`swiglu_plain` and :func:`combine_plain`, the f32 ATen
+compositions. The combine reads each token's sorted rows through
+``Routing.rows``, the inverse of the sort, made on the device by one scatter.
 
 Expert weights keep the checkpoint's layout, ``[E, out, in]`` a projection
 (gate and up stacked on ``out``), which the grouped product reads
@@ -39,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.profiling import KERNELS, Tally
+from . import moe_cuda
 
 
 @dataclass
@@ -47,7 +56,7 @@ class Routing:
 
     experts: torch.Tensor  # [n, k] int64: each token's chosen experts
     token: torch.Tensor  # [n * k] int64: the token of each sorted row
-    order: torch.Tensor  # [n * k] int64: each sorted row's place among the unsorted (token * k + choice)
+    rows: torch.Tensor  # [n, k] int64: each (token, choice)'s sorted row
     ends: torch.Tensor  # [E] int32: the row after each expert's last (cumulative)
     counts: torch.Tensor  # [E] int64: each expert's rows
     weights: torch.Tensor  # [n, k] f32: each choice's combine weight
@@ -64,11 +73,13 @@ def route(x: torch.Tensor, w_router: torch.Tensor, bias: torch.Tensor, *, top_k:
     if normalize:
         weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
     weights = weights * scale
+    # order: each sorted row's place among the unsorted (token * k + choice)
     flat_sorted, order = torch.sort(experts.reshape(-1), stable=True)
     ids = torch.arange(n_experts, device=x.device, dtype=flat_sorted.dtype)
     ends = torch.searchsorted(flat_sorted, ids, right=True)
     counts = torch.diff(ends, prepend=ends.new_zeros(1))
-    return Routing(experts, order // top_k, order, ends.to(torch.int32), counts, weights)
+    rows = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=x.device))
+    return Routing(experts, order // top_k, rows.view(-1, top_k), ends.to(torch.int32), counts, weights)
 
 
 def _grouped_plain(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
@@ -93,21 +104,34 @@ def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Te
     return _grouped_plain(x, w, ends)
 
 
-def swiglu(h: torch.Tensor) -> torch.Tensor:
-    """[M, 2I] gate|up -> silu(gate) * up, [M, I], in f32 rounded once to h's
-    dtype."""
+def swiglu_plain(h: torch.Tensor) -> torch.Tensor:
+    """[..., 2I] gate|up -> silu(gate) * up, [..., I], in f32 rounded once to
+    h's dtype: the ATen composition."""
     gate, up = h.float().chunk(2, dim=-1)
     return (F.silu(gate) * up).to(h.dtype)
 
 
-def combine(y: torch.Tensor, r: Routing) -> torch.Tensor:
+def swiglu(h: torch.Tensor) -> torch.Tensor:
+    """:func:`swiglu_plain`: the kernel on the card, the plain version on CPU
+    tensors."""
+    return swiglu_plain(h) if h.device.type == "cpu" else moe_cuda.swiglu(h)
+
+
+def combine_plain(y: torch.Tensor, r: Routing, shared: torch.Tensor | None = None) -> torch.Tensor:
     """Sorted expert outputs y [n * k, D] -> each token's weighted sum, [n, D]
-    in f32: the rows put back in token order (a permutation, so no atomic
-    adds and the same sum every run), then the k choices summed."""
-    n, k = r.weights.shape
-    unsorted = torch.empty_like(y)
-    unsorted[r.order] = y
-    return (unsorted.view(n, k, -1).float() * r.weights[..., None]).sum(dim=1)
+    in y's dtype: the k rows of each token gathered through ``r.rows`` (a
+    permutation, so the same sum every run), weighted and summed in f32,
+    rounded once; then ``shared`` [n, D] added where given."""
+    out = (y[r.rows].float() * r.weights[..., None]).sum(dim=1).to(y.dtype)
+    return out if shared is None else out + shared
+
+
+def combine(y: torch.Tensor, r: Routing, shared: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`combine_plain`: the kernel on the card (the k choices summed in
+    choice order), the plain version on CPU tensors."""
+    if y.device.type == "cpu":
+        return combine_plain(y, r, shared)
+    return moe_cuda.combine(y, r.rows, r.weights, shared)
 
 
 def moe(x: torch.Tensor, router: dict, w13: torch.Tensor, w2: torch.Tensor, shared: Callable | None, *,
@@ -129,5 +153,4 @@ def moe(x: torch.Tensor, router: dict, w13: torch.Tensor, w2: torch.Tensor, shar
         h = grouped_mm(x[r.token], w13, r.ends)
         y = grouped_mm(swiglu(h), w2, r.ends)
     with tally.span("moe.combine"):
-        out = combine(y, r).to(x.dtype)
-        return (out if shared is None else out + shared(x)), r
+        return combine(y, r, None if shared is None else shared(x)), r

@@ -29,12 +29,12 @@ The spans, by name (each a range ``mme.<name>``):
 - ``encode.text_batch``: one text batch (``_text_batch``);
 - ``kernel.<kernel>``: a kernel wrapper's launch (``fused_attention``,
   ``fused_attention_qkv``, ``maxsim``, ``preprocess``,
-  ``fused_res_norm_matmul``, ``fused_layer_norm``, ``mlp_activation``), on
-  :data:`KERNELS`;
+  ``fused_res_norm_matmul``, ``fused_layer_norm``, ``mlp_activation``,
+  ``moe_swiglu``, ``moe_combine``), on :data:`KERNELS`;
 - ``moe.route``, ``moe.experts``, ``moe.combine``: a MoE layer's router,
-  top-k, sort and expert row ends; its grouped products and SwiGLU; its
-  weighted combine and shared experts (``ops/moe.py:moe``), on the
-  decoder's tally.
+  top-k, sort, expert row ends and inverse permutation; its grouped
+  products and SwiGLU; its shared experts and weighted combine
+  (``ops/moe.py:moe``), on the decoder's tally.
 
 The engine's counts: ``encode.image_rows`` and ``encode.image_pad_rows``
 (rows the vision tower ran and the padding among them),
@@ -45,7 +45,8 @@ mesh each rank counts its own rows. The DeepSeek decoder's:
 expert's routed rows a MoE layer are counted on the device instead
 (``DeepseekLM.expert_loads``, one add a layer, no sync) and read by
 ``take_expert_loads`` after a barrier. :data:`KERNELS` also counts
-``grouped_mm``, each grouped expert product on the card.
+``grouped_mm``, each grouped expert product on the card, and the
+decoder's ``moe_swiglu`` and ``moe_combine`` kernels.
 
 A text batch on the card replays a CUDA graph (``utils/graphs.py``): the
 replay opens none of the forward's spans, and adds again the counts that

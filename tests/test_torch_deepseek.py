@@ -204,8 +204,9 @@ def test_grouped_dispatch_matches_a_loop_over_the_experts(n_tokens):
     assert torch.equal(r.experts, r_loop.experts)
     assert rel(got, want) < 1e-6
     flat = r.experts.reshape(-1)
-    assert torch.equal(flat[r.order], flat.sort(stable=True).values)  # sorted by expert
-    assert torch.equal(r.token, r.order // k)
+    order = torch.empty_like(flat).scatter_(0, r.rows.reshape(-1), torch.arange(flat.numel()))  # rows inverted
+    assert torch.equal(flat[order], flat.sort(stable=True).values)  # sorted by expert
+    assert torch.equal(r.token, order // k)
     assert torch.equal(r.ends.long(), torch.cumsum(torch.bincount(flat, minlength=e), 0))
     assert torch.equal(loads, torch.bincount(flat, minlength=e)) and tally.counts == {"moe.routed_rows": n_tokens * k}
 
