@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --cases maxsim,preprocess    # the build and these phase-2 cases only
                                                       # (sets: activation, attention, attention_qkv,
-                                                      # maxsim, moe_glue, prologue, layernorm, preprocess)
+                                                      # maxsim, moe_glue, prologue, layernorm, preprocess,
+                                                      # ssm)
     python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
@@ -40,7 +41,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
      the ATen chain it replaced, with ``index_put`` and the gather of the
      routed rows timed alone, and a ``ColPali-KimiVL-A3B`` caption batch at
      full width whose CUDA graph replays are bit-equal to the eager forward
-     and add its launch counts, 53 and 26),
+     and add its launch counts, 53 and 26, each call's counts set to 0 just
+     before it; the combine at top-10 of 72 experts and width 4096, its
+     16-choice build; the Mamba-2 scan kernel at Granite-4.0-H-Small's
+     widths against its plain chunked version, at the Granite cell's page
+     batch, its two caption batches and a ragged f32 one, with its device
+     time against the recurrence's bound, and a ``ColPali-Granite-4.0-H-Small``
+     page batch and caption batch at full width, each forward 36 ``ssm_scan``,
+     80 ``moe_swiglu`` and 40 ``moe_combine``, the caption batch's graph
+     replays bit-equal to its eager forward),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
      one) and the least time the card could take (``bound_ms``), and each
@@ -907,10 +916,12 @@ def _bf16_step(x):
     return torch.where(a > 0, torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8), torch.zeros_like(a))
 
 
-def _moe_combine_case(name, *, n, k, d, rng):
+def _moe_combine_case(name, *, n, k, d, rng, router="deepseek"):
     """The MoE combine kernel with the shared experts' addend at n tokens, k
-    choices, width d, routed by a Kimi-VL-A3B router (64 experts, weights
-    drawn as the arch model draws them): bit-equal to the choice-order f32
+    choices, width d, routed by a Kimi-VL-A3B router (``router`` "deepseek":
+    64 experts, weights drawn as the arch model draws them) or a
+    Granite-4.0-H one ("granite": 72 experts, the softmax of the top k
+    logits; k above 8 takes the kernel's 16-choice build): bit-equal to the choice-order f32
     composition; without the addend, apart from the plain ``combine`` (ATen's
     order of the sum) by at most one bf16 step of the result plus the two f32
     orders' bound, 2 (k - 1) 2^-24 sum_j |w_j y_j| (more than a bf16 step of a
@@ -931,9 +942,12 @@ def _moe_combine_case(name, *, n, k, d, rng):
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     x = torch.randn((n, d), generator=gen, device=dev).to(bf16)
-    w_router = torch.randn((64, d), generator=gen, device=dev) * 0.02
-    bias = torch.randn((64,), generator=gen, device=dev) * 0.02
-    r = tmoe.route(x, w_router, bias, top_k=k, scale=2.446, normalize=True)
+    if router == "granite":
+        r = tmoe.route_softmax(x, torch.randn((72, d), generator=gen, device=dev) * 0.02, top_k=k)
+    else:
+        w_router = torch.randn((64, d), generator=gen, device=dev) * 0.02
+        bias = torch.randn((64,), generator=gen, device=dev) * 0.02
+        r = tmoe.route(x, w_router, bias, top_k=k, scale=2.446, normalize=True)
     y = (torch.randn((n * k, d), generator=gen, device=dev) * 0.05).to(bf16)
     shared = (torch.randn((n, d), generator=gen, device=dev) * 0.05).to(bf16)
     # each sorted row's place among the unsorted (token * k + choice): rows inverted
@@ -978,7 +992,8 @@ def _moe_combine_case(name, *, n, k, d, rng):
     nbytes = (n * k * d + 2 * n * d) * y.element_size() + n * k * (8 + 4)
     bms, by = bound_ms(0.0, nbytes, "f32_flops")
     dev_ms = device_ms(kernel)
-    case = {"case": name, "op": "combine", "n": n, "k": k, "d": d, "dtype": "bfloat16", "bit_equal": bit_equal,
+    case = {"case": name, "op": "combine", "router": router, "n": n, "k": k, "d": d, "dtype": "bfloat16",
+            "bit_equal": bit_equal,
             "routed_max_steps_vs_plain": ulps, "routed_bit_equal_to_plain": plain_equal, "max_abs_err": err,
             "ms": cuda_time_ms(kernel), "device_ms": dev_ms,
             "bound_ms": bms, "bound_by": by, "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms,
@@ -989,40 +1004,58 @@ def _moe_combine_case(name, *, n, k, d, rng):
     return case
 
 
-def _moe_graph_case(name, *, rng):
-    """A caption batch of the ``ColPali-KimiVL-A3B`` decoder at full width
-    and depth (arch-random weights on the card) through ``text_fwd``: its
-    CUDA graph captured, then replayed, each call bit-equal to the eager
-    forward and adding the eager forward's launch counts, 53 ``moe_swiglu``
-    and 26 ``moe_combine``. The launches of the main path are phase 3's."""
+def _moe_graph_case(name, *, rng, decoder="deepseek", tag="moe_glue"):
+    """A caption batch of a MoE ColPali decoder at full width and depth
+    (arch-random weights on the card) through ``text_fwd``: its CUDA graph
+    captured, then replayed, each call bit-equal to the eager forward and
+    adding the eager forward's launch counts, each call's counts set to 0
+    just before it and read just after. ``decoder`` "deepseek"
+    (``ColPali-KimiVL-A3B``): 53 ``moe_swiglu`` and 26 ``moe_combine`` a
+    forward; "granite" (``ColPali-Granite-4.0-H-Small``): 80 ``moe_swiglu``,
+    40 ``moe_combine`` and 36 ``ssm_scan``, and a page batch (8 pages of
+    1030 tokens) through ``image_fwd`` with the same counts. The launches of
+    the Kimi main path are phase 3's."""
     import torch
 
-    from multimodal_embedding_tpu_torch.models.arch import full_colpali_deepseek_config
+    from multimodal_embedding_tpu_torch.models.arch import full_colpali_deepseek_config, full_colpali_granite_config
     from multimodal_embedding_tpu_torch.models.colpali import ColPali
-    from multimodal_embedding_tpu_torch.ops import launch_counts
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    keys = ("moe_swiglu", "moe_combine", "grouped_mm")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
-
-    def counted(fn, *args):
-        before = launch_counts()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        after = launch_counts()
-        return out, {key: after[key] - before[key] for key in keys}
-
     t0 = time.perf_counter()
-    cfg = full_colpali_deepseek_config()
+    cfg = full_colpali_granite_config() if decoder == "granite" else full_colpali_deepseek_config()
     model = ColPali(cfg, COLPALI_SUFFIX_IDS.tolist(), seed=0, device=dev, dtype=torch.bfloat16)
     lm = model.gemma.cfg
-    want = {"moe_swiglu": 2 * lm.moe_layers + lm.first_dense, "moe_combine": lm.moe_layers,
-            "grouped_mm": 2 * lm.moe_layers}
+    if decoder == "granite":
+        want = {"moe_swiglu": 2 * lm.layers, "moe_combine": lm.layers, "grouped_mm": 2 * lm.layers,
+                "ssm_scan": lm.mamba_layers}
+        require(want == {"moe_swiglu": 80, "moe_combine": 40, "grouped_mm": 80, "ssm_scan": 36},
+                f"moe graph {name}: Granite-4.0-H-Small's layers give {want}")
+    else:
+        want = {"moe_swiglu": 2 * lm.moe_layers + lm.first_dense, "moe_combine": lm.moe_layers,
+                "grouped_mm": 2 * lm.moe_layers, "ssm_scan": 0}
+
+    def counted(fn, *args):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        return out, {key: counts[key] for key in want}
+
     ids = torch.randint(1, lm.vocab_size, (32, 24), generator=gen, device=dev)
     mask = torch.ones_like(ids)
     mask[16:, 19:] = 0
     ids = ids * mask
+    page = None
     with torch.inference_mode():
+        if decoder == "granite":
+            pixels = torch.rand(8, cfg.vision.image_size, cfg.vision.image_size, 3, generator=gen, device=dev)
+            out, page = counted(model.image_fwd, pixels)
+            require(page == want and bool(torch.isfinite(out).all()),
+                    f"moe graph {name}: a page batch's counts {page}, want {want}; finite: {bool(torch.isfinite(out).all())}")
+            del out, pixels
         eager_out, eager = counted(model._text, ids, mask)
         graphed = [counted(model.text_fwd, ids, mask) for _ in range(3)]  # capture, then replays
     replay_equal = all(torch.equal(out, eager_out) for out, _ in graphed)
@@ -1031,10 +1064,87 @@ def _moe_graph_case(name, *, rng):
             f"moe graph {name}: counts {calls}, want {want} a forward; replays bit-equal: {replay_equal}")
     del model, eager_out, graphed
     torch.cuda.empty_cache()
-    case = {"case": name, "op": "graph", "want_a_forward": want, "caption": calls,
-            "caption_replay_bit_equal": replay_equal, "seconds": time.perf_counter() - t0}
-    print(f"[moe_glue] {json.dumps(case)}")
+    case = {"case": name, "op": "graph", "decoder": decoder, "want_a_forward": want, "caption": calls,
+            "page_batch": page, "caption_replay_bit_equal": replay_equal, "seconds": time.perf_counter() - t0}
+    print(f"[{tag}] {json.dumps(case)}")
     return case
+
+
+def _ssm_inputs(b, t, gen, dtype):
+    """A Mamba-2 layer's scan inputs at Granite-4.0-H-Small's widths (128
+    heads of 64, state 128), at the scale the cell's weights feed it: x, B
+    and C SiLU outputs, views into one [b, t, 8192 + 256] tensor as the
+    conv's output holds them; dt the softplus of the initialiser's range; A
+    in [-16, -1] (f32); D ones."""
+    import torch
+
+    h, p, n = 128, 64, 128
+    dev = gen.device
+    xbc = torch.nn.functional.silu(torch.randn(b, t, h * p + 2 * n, generator=gen, device=dev)).to(dtype)
+    x, bm, cm = xbc.split([h * p, n, n], dim=-1)
+    raw = torch.randn(b, t, h, generator=gen, device=dev) * 1.28 + torch.rand(h, generator=gen, device=dev) * 4.6 - 6.9
+    dt = torch.nn.functional.softplus(raw).to(dtype)
+    a = -(1 + 15 * torch.rand(h, generator=gen, device=dev))
+    return x.unflatten(-1, (h, p)), dt, a, bm, cm, torch.ones(h, device=dev, dtype=dtype)
+
+
+def _ssm_scan_case(name, *, b, t, rng, dtype="bfloat16"):
+    """The scan kernel over b sequences of t tokens (``_ssm_inputs``) against
+    its plain version on the same inputs (``ops/ssm.py:scan_plain``, chunk
+    256, run here as the reference only): in bf16 within one bf16 step of
+    the plain output plus 1e-4 of its largest magnitude, in f32 within 1e-4
+    of it (the card tests' limits: both round an f32 result once and sum the
+    state in other orders); one ``ssm_scan`` launch a call; its device time
+    against the bound of the recurrence's work at the cell's precision
+    (``perfbench/yardstick_hybrid.py:ssm_work``: x, dt, B and C read once and
+    y written once, the operations at the bf16 peak), and the plain scan's."""
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts, ssm
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+    from perfbench import yardstick_hybrid
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    dt_ = getattr(torch, dtype)
+    args = _ssm_inputs(b, t, gen, dt_)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = ssm.scan(*args, chunk=256)
+        torch.cuda.synchronize()
+        launches = launch_counts()["ssm_scan"]
+        want = ssm.scan_plain(*args, chunk=256)
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    step = torch.finfo(torch.bfloat16).eps * w.abs() if dt_ == torch.bfloat16 else torch.zeros_like(w)
+    excess = float(((g - w).abs() - step - 1e-4 * top).max())
+    err = float((g - w).abs().max())
+    del got, want, g, w, step
+    require(launches == 1 and excess <= 0,
+            f"ssm scan {name}: {launches} launches, {excess} past one bf16 step plus 1e-4 of {top}")
+    cfg = json.loads((ROOT / "perfbench/configs/colpali-granite-4.0-h-small.json").read_text())
+    flops, nbytes = yardstick_hybrid.ssm_work(cfg, b * t)
+    nbytes *= args[0].element_size() / 2  # counted in bf16
+    bms, by = bound_ms(flops, nbytes, "bf16_flops")
+    with torch.inference_mode():
+        dev_ms = device_ms(lambda: ssm.scan(*args, chunk=256))
+        ms = cuda_time_ms(lambda: ssm.scan(*args, chunk=256))
+        plain_ms = cuda_time_ms(lambda: ssm.scan_plain(*args, chunk=256))
+        plain_dev_ms = device_ms(lambda: ssm.scan_plain(*args, chunk=256))
+    case = {"case": name, "op": "scan", "shape": [b, t, 128, 64], "state": 128, "dtype": dtype,
+            "launches_a_call": launches, "max_abs_err": err, "max_abs_out": top, "ms": ms, "device_ms": dev_ms,
+            "bound_ms": bms, "bound_by": by, "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms,
+            "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms, "library_ms": None}
+    print(f"[ssm] {json.dumps(case)}")
+    return case
+
+
+def _ssm_case(name, *, op, rng, **kw):
+    """One ``ssm`` case: ``op`` "scan" or "graph" (the Granite decoder's)."""
+    if op == "graph":
+        return _moe_graph_case(name, rng=rng, decoder="granite", tag="ssm")
+    return _ssm_scan_case(name, **kw, rng=rng)
 
 
 def _moe_glue_case(name, *, op, rng, **kw):
@@ -1228,7 +1338,24 @@ def moe_glue_cases() -> list[tuple[str, dict]]:
         ("shared swiglu", dict(op="swiglu", m=n, width=2 * 2 * 1408)),
         ("dense swiglu", dict(op="swiglu", m=n, width=2 * 11264)),
         ("combine", dict(op="combine", n=n, k=6, d=2048)),
+        # colpali-granite-4.0-h-small.coco-maxsim-hybrid's page batch: top-10
+        # of 72 experts at width 4096, the kernel's 16-choice build
+        ("granite combine k10", dict(op="combine", n=n, k=10, d=4096, router="granite")),
         ("ColPali-KimiVL-A3B caption graph", dict(op="graph")),
+    ]
+
+
+def ssm_cases() -> list[tuple[str, dict]]:
+    # colpali-granite-4.0-h-small.coco-maxsim-hybrid: a page batch (8 pages
+    # of 1030 tokens), its T2I caption batch (32 captions) and an I2T one
+    # (128, the engine's text batch) at about 20 tokens; a ragged f32 one;
+    # then the whole decoder's launches
+    return [
+        ("granite page batch", dict(op="scan", b=8, t=1030)),
+        ("granite t2i caption batch", dict(op="scan", b=32, t=20)),
+        ("granite i2t caption batch", dict(op="scan", b=128, t=20)),
+        ("f32 ragged", dict(op="scan", b=3, t=37, dtype="float32")),
+        ("ColPali-Granite-4.0-H-Small page and caption graph", dict(op="graph")),
     ]
 
 
@@ -1270,6 +1397,7 @@ def maxsim_cases() -> list[tuple[str, dict]]:
 CASE_SETS = {
     "activation": (activation_cases, "_activation_case", "activation"),
     "moe_glue": (moe_glue_cases, "_moe_glue_case", "moe_glue"),
+    "ssm": (ssm_cases, "_ssm_case", "ssm"),
     "preprocess": (preprocess_cases, "_preprocess_case", "preprocess"),
     "maxsim": (maxsim_cases, "_maxsim_case", "maxsim"),
     "attention": (attention_cases, "_attention_case", "attention"),
@@ -1322,8 +1450,11 @@ def phase_kernels() -> list[dict]:
     torch.cuda.empty_cache()
     moe = [_moe_glue_case(name, **kw, rng=rng) for name, kw in moe_glue_cases()]
     moe_swiglu = [c for c in moe if c["op"] == "swiglu"]
-    (moe_combine,) = [c for c in moe if c["op"] == "combine"]
+    moe_combine = [c for c in moe if c["op"] == "combine"]
     (moe_graph,) = [c for c in moe if c["op"] == "graph"]
+    torch.cuda.empty_cache()
+    ssm = [_ssm_case(name, **kw, rng=rng) for name, kw in ssm_cases()]
+    (ssm_graph,) = [c for c in ssm if c["op"] == "graph"]
     root = "multimodal_embedding_tpu_torch/csrc"
     # the f32 bodies are kernels of their own (flash_f32_kernel, tf32x3_kernel)
     # with their own launch counts: their cases and headlines apart
@@ -1363,10 +1494,16 @@ def phase_kernels() -> list[dict]:
          **_headline(act[0]), "cases": act},
         {"name": "moe_swiglu", "route": "cuda", "source": f"{root}/moe.cu",
          "replaces": "none (the JAX package has no MoE layer): ops/moe.py:swiglu_plain's ATen chain",
-         "path": "the ColPali-KimiVL-A3B decoder", **_headline(moe_swiglu[0]), "cases": moe_swiglu},
+         "path": "the ColPali-KimiVL-A3B and ColPali-Granite-4.0-H-Small decoders", **_headline(moe_swiglu[0]),
+         "cases": moe_swiglu},
         {"name": "moe_combine", "route": "cuda", "source": f"{root}/moe.cu",
          "replaces": "none (the JAX package has no MoE layer): the index_put, f32 product, sum and add of ops/moe.py",
-         "path": "the ColPali-KimiVL-A3B decoder", **_headline(moe_combine), "cases": [moe_combine, moe_graph]},
+         "path": "the ColPali-KimiVL-A3B and ColPali-Granite-4.0-H-Small decoders", **_headline(moe_combine[0]),
+         "cases": [*moe_combine, moe_graph]},
+        {"name": "ssm_scan", "route": "cuda", "source": f"{root}/ssm.cu",
+         "replaces": "none (the JAX package has no state-space layer): ops/ssm.py:scan_plain, the chunked f32 form",
+         "path": "the ColPali-Granite-4.0-H-Small decoder", **_headline(ssm[0]),
+         "launches": ssm_graph["caption"]["eager"]["ssm_scan"], "cases": ssm},
     ]
 
 
@@ -1548,10 +1685,14 @@ def phase_main_path(kernels: list[dict]) -> None:
           f"moe_combine={kimi_counts['moe_combine']} grouped_mm={kimi_counts['grouped_mm']}")
     paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts,
              **{r["model"]: r["counts"] for r in others}}
-    for name in ("moe_swiglu", "moe_combine", "grouped_mm"):
-        require(all(c[name] == 0 for c in paths.values()), f"{name} launched off the MoE decoder: {paths}")
+    for name in ("moe_swiglu", "moe_combine", "grouped_mm", "ssm_scan"):
+        require(all(c[name] == 0 for c in paths.values()), f"{name} launched off the MoE decoders: {paths}")
+    require(kimi_counts["ssm_scan"] == 0, f"ColPali-KimiVL-A3B launched the scan: {kimi_counts}")
     paths["ColPali-KimiVL-A3B"] = kimi_counts
     for k in kernels:
+        if k["name"] == "ssm_scan":  # the Granite decoder's launches are phase 2's forward
+            k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+            continue
         # each kernel's launches on the path that runs it: ColPali for
         # attention, preprocess and MaxSim, the fused CLIP-L path for the
         # prologue and stacked-QKV attention, CLIP-L for the MLP activation,

@@ -55,7 +55,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSwigluUnroll = 2;  // output vectors a thread
-constexpr int kMaxChoices = 8;    // the largest k the combine takes
+constexpr int kMaxChoices = 16;   // the largest k the combine takes: up to 8 in one build, up to 16 in another
 
 // A 16-byte vector of T as f32 values and back.
 template <typename T>
@@ -136,8 +136,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out [n, D] as nvec vectors of V, row_vecs = D / V of them a row; y [>= n k, D]
-// the sorted expert rows; rows and w [n, k]; shared [n, D] where kAddend.
-template <typename T, bool kAddend>
+// the sorted expert rows; rows and w [n, k], k <= kMaxK; shared [n, D] where
+// kAddend.
+template <typename T, bool kAddend, int kMaxK>
 __global__ void __launch_bounds__(kThreads)
     combine_kernel(const T* __restrict__ y, const long long* __restrict__ rows, const float* __restrict__ w,
                    const T* __restrict__ shared, T* __restrict__ out, unsigned nvec, unsigned row_vecs, int k) {
@@ -147,18 +148,18 @@ __global__ void __launch_bounds__(kThreads)
   const unsigned t = i / row_vecs;
   const unsigned col = i - t * row_vecs;
   const uint4* __restrict__ yv = reinterpret_cast<const uint4*>(y);
-  long long r[kMaxChoices];
-  float wt[kMaxChoices];
+  long long r[kMaxK];
+  float wt[kMaxK];
 #pragma unroll
-  for (int j = 0; j < kMaxChoices; ++j) {
+  for (int j = 0; j < kMaxK; ++j) {
     if (j < k) {
       r[j] = __ldg(rows + (long long)t * k + j);
       wt[j] = __ldg(w + (long long)t * k + j);
     }
   }
-  uint4 v[kMaxChoices];
+  uint4 v[kMaxK];
 #pragma unroll
-  for (int j = 0; j < kMaxChoices; ++j) {
+  for (int j = 0; j < kMaxK; ++j) {
     if (j < k) v[j] = __ldg(yv + r[j] * row_vecs + col);
   }
   uint4 s = make_uint4(0, 0, 0, 0);
@@ -168,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int e = 0; e < V; ++e) acc[e] = __fmul_rn(wt[0], f[e]);
 #pragma unroll
-  for (int j = 1; j < kMaxChoices; ++j) {
+  for (int j = 1; j < kMaxK; ++j) {
     if (j < k) {
       Vec<T>::widen(v[j], f);
 #pragma unroll
@@ -198,6 +199,16 @@ int swiglu_launch(const void* h, void* y, long long rows, long long width, cudaS
   return (int)cudaGetLastError();
 }
 
+template <typename T, int kMaxK>
+void combine_grid(const T* y, const long long* rows, const float* w, const T* shared, T* out, unsigned nvec,
+                  unsigned row_vecs, int k, cudaStream_t s) {
+  const unsigned blocks = (nvec + kThreads - 1) / kThreads;
+  if (shared != nullptr)
+    combine_kernel<T, true, kMaxK><<<blocks, kThreads, 0, s>>>(y, rows, w, shared, out, nvec, row_vecs, k);
+  else
+    combine_kernel<T, false, kMaxK><<<blocks, kThreads, 0, s>>>(y, rows, w, shared, out, nvec, row_vecs, k);
+}
+
 template <typename T>
 int combine_launch(const void* y, const long long* rows, const float* w, const void* shared, void* out, long long n,
                    long long k, long long d, cudaStream_t s) {
@@ -207,15 +218,15 @@ int combine_launch(const void* y, const long long* rows, const float* w, const v
     return (int)cudaErrorInvalidValue;
   const long long nvec = n * (d / V);
   if (nvec >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((nvec + kThreads - 1) / kThreads);
   const T* yt = static_cast<const T*>(y);
   const T* st = static_cast<const T*>(shared);
   T* ot = static_cast<T*>(out);
-  if (shared != nullptr)
-    combine_kernel<T, true><<<blocks, kThreads, 0, s>>>(yt, rows, w, st, ot, (unsigned)nvec, (unsigned)(d / V), (int)k);
+  // DeepSeek's k = 6 takes the build of at most 8 choices, Granite's k = 10 the one of 16: each keeps
+  // only the registers its choices need
+  if (k <= 8)
+    combine_grid<T, 8>(yt, rows, w, st, ot, (unsigned)nvec, (unsigned)(d / V), (int)k, s);
   else
-    combine_kernel<T, false><<<blocks, kThreads, 0, s>>>(yt, rows, w, st, ot, (unsigned)nvec, (unsigned)(d / V),
-                                                         (int)k);
+    combine_grid<T, kMaxChoices>(yt, rows, w, st, ot, (unsigned)nvec, (unsigned)(d / V), (int)k, s);
   return (int)cudaGetLastError();
 }
 
@@ -234,7 +245,7 @@ extern "C" int moe_swiglu_fwd(int dtype, const void* h, void* y, long long rows,
 // dtype: 0 = float32, 1 = bfloat16, of y, shared and out. y the sorted expert
 // rows [>= n * k, d]; rows [n, k] int64, each a row of y; w [n, k] float32;
 // shared [n, d] or null; out [n, d]. All contiguous; y, shared and out 16-byte
-// aligned, d a whole number of 16-byte vectors, 1 <= k <= 8. Returns a
+// aligned, d a whole number of 16-byte vectors, 1 <= k <= 16. Returns a
 // cudaError_t code.
 extern "C" int moe_combine_fwd(int dtype, const void* y, const void* rows, const void* w, const void* shared,
                                void* out, long long n, long long k, long long d, void* stream) {

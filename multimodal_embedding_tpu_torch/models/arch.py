@@ -114,6 +114,27 @@ def full_colpali_deepseek_config():
                          image_token_id=163605)  # Kimi-VL's media placeholder id
 
 
+def full_colpali_granite_config():
+    """ColPali-v1.3's SigLIP-So400m/14-448 tower, projector and 128-d head
+    around Granite-4.0-H-Small's language model
+    (huggingface.co/ibm-granite/granite-4.0-h-small ``config.json``): 40
+    layers at width 4096, 36 Mamba-2 (128 heads of 64, state 128, conv 4,
+    expand 2, chunk 256) and 4 NoPE GQA attention layers at 5, 15, 25 and 35
+    (32 heads, 8 KV heads, Dh 128, scale 1/128), each with 72 routed experts
+    of width 768, 10 a token, and a shared expert of 1536; embedding
+    multiplier 12, residual multiplier 0.22; vocabulary 100352."""
+    from .colpali import ColPaliConfig
+    from .granite import GraniteConfig
+
+    base = full_colpali_config()
+    types = tuple("attention" if i % 10 == 5 else "mamba" for i in range(40))
+    lm = GraniteConfig(vocab_size=100352, dim=4096, layer_types=types, heads=32, kv_heads=8, moe_dim=768,
+                       n_experts=72, top_k=10, shared_dim=1536, ssm_heads=128, ssm_head_dim=64, state=128,
+                       conv_width=4, expand=2, chunk=256, embedding_multiplier=12.0, residual_multiplier=0.22,
+                       attention_multiplier=0.0078125, rms_eps=1e-5)
+    return ColPaliConfig(vision=base.vision, gemma=lm, embedding_dim=base.embedding_dim, image_token_id=100351)
+
+
 def full_jina_config():
     """jinaai/jina-clip-v1: EVA02-B/16 + JinaBERT-base."""
     from .jina import Eva02Config, JinaBertConfig, JinaClipConfig
@@ -149,14 +170,14 @@ def colpali_word_tokenizer(vocab_size: int):
 
 def arch_tokenizer(info, cfg):
     """The offline word-hash tokenizer of an arch model: ColPali's 32-token
-    prompts (the DeepSeek ColPali: ColPali's query prompt,
+    prompts (the DeepSeek and Granite ColPalis: ColPali's query prompt,
     :func:`colpali_word_tokenizer`), Jina's registry length with its EOS id 3, and each dual
     encoder's text length with the CLIP EOS id 49407. That id is past the end
     of SigLIP's 32000-row table, where the JAX package's gather clamps it to
     the last row: so the id is ``min(49407, vocab - 1)``, the row JAX reads."""
     from .zoo import hash_tokenizer
 
-    if info.type == "colpali" and info.decoder == "deepseek":
+    if info.type == "colpali" and info.decoder in ("deepseek", "granite"):
         return colpali_word_tokenizer(cfg.gemma.vocab_size)
     if info.type == "colpali":
         return hash_tokenizer(cfg.gemma.vocab_size, 32, 1)
@@ -183,7 +204,8 @@ def load_arch_model(name: str, seed: int = 0, *, device, dtype=torch.bfloat16):
     if info.type == "colpali":
         from .colpali import ColPali
 
-        cfg = full_colpali_deepseek_config() if info.decoder == "deepseek" else full_colpali_config()
+        cfg = {"deepseek": full_colpali_deepseek_config, "granite": full_colpali_granite_config}.get(
+            info.decoder, full_colpali_config)()
         suffix = np.array(COLPALI_IMAGE_SUFFIX, np.int32)
         return LoadedModel(
             info=info, cfg=cfg, model=ColPali(cfg, suffix, seed=seed, device=device, dtype=dtype),

@@ -13,7 +13,9 @@ Counterpart of ``multimodal_embedding_tpu/models/colpali.py``:
   or, where the configuration's ``gemma`` is a ``DeepseekConfig``, the
   DeepSeek-V3 decoder of Kimi-VL-A3B (``deepseek.py``) with its own causal
   mask; that model scales neither its token embeddings nor the image
-  features, so both enter it as they are;
+  features, so both enter it as they are; where it is a ``GraniteConfig``,
+  Granite-4.0-H's hybrid Mamba-2 and MoE decoder (``granite.py``), causal,
+  which scales both alike by its ``embedding_multiplier``;
 - retrieval head: a linear to 128 dims per token in f32, L2-normalized per
   token with ``max(norm, 1e-12)``; query pad tokens are zeroed (HF
   ColPaliForRetrieval's ``emb * mask``, COMPAT #8).
@@ -29,7 +31,8 @@ converts an HF ``ColPaliForRetrieval`` state dict into the JAX package's
 param tree (numpy), which ``load_colpali`` carries into the module.
 :func:`colpali_deepseek_from_hf` loads the DeepSeek variant from HF-layout
 tensors part by part on their own device (its 15.6 B parameters would take
-62 GB as the host f32 tree).
+62 GB as the host f32 tree), :func:`colpali_granite_from_hf` the Granite one
+(32.2 B).
 """
 
 from __future__ import annotations
@@ -46,8 +49,11 @@ from ..parallel.sp import gather_tokens, sp_mesh_for
 from ..utils import graphs
 from ..utils.graphs import ShapeGraphs
 from .convert import _encoder_from_hf, _lin, _ln, _patch_w, _t, stack_layers
-from .deepseek import DeepseekConfig, DeepseekLM, layer_from_hf, owned
+from . import granite
+from .decoder import RoutedLM, owned
+from .deepseek import DeepseekConfig, DeepseekLM, layer_from_hf
 from .gemma import Gemma, GemmaConfig
+from .granite import GraniteConfig, GraniteLM
 from .layers import linear
 from .params import load_tree
 from .registry import ModelInfo
@@ -57,7 +63,7 @@ from .towers import VisionConfig, VisionTower, seeded_generator
 @dataclass(frozen=True)
 class ColPaliConfig:
     vision: VisionConfig
-    gemma: GemmaConfig | DeepseekConfig  # the language model: Gemma, or the DeepSeek decoder
+    gemma: GemmaConfig | DeepseekConfig | GraniteConfig  # the language model: Gemma, DeepSeek or Granite
     embedding_dim: int = 128
     image_token_id: int = 256000
 
@@ -86,14 +92,14 @@ class ColPali(nn.Module):
 
         self.vision = VisionTower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.mm_proj = nn.ParameterDict({"w": normal((cfg.vision.dim, cfg.gemma.dim)), "b": zeros(cfg.gemma.dim)})
-        lm = DeepseekLM if isinstance(cfg.gemma, DeepseekConfig) else Gemma
+        lm = {DeepseekConfig: DeepseekLM, GraniteConfig: GraniteLM}.get(type(cfg.gemma), Gemma)
         self.gemma = lm(cfg.gemma, gen=gen, device=device, dtype=dtype)
         self.emb_proj = nn.ParameterDict({"w": normal((cfg.gemma.dim, cfg.embedding_dim)),
                                           "b": zeros(cfg.embedding_dim)})
         ids = torch.as_tensor(np.asarray(image_suffix_ids, np.int32), device=device)
         self.register_buffer("image_suffix_ids", ids)
-        # the DeepSeek decoder's caption batches on the card: CUDA graphs
-        self.text_graphs = ShapeGraphs(self.gemma.tally) if isinstance(self.gemma, DeepseekLM) else None
+        # the MoE decoders' caption batches on the card: CUDA graphs
+        self.text_graphs = ShapeGraphs(self.gemma.tally) if isinstance(self.gemma, RoutedLM) else None
 
     def _apply(self, fn, *args, **kwargs):
         if self.text_graphs is not None:
@@ -118,9 +124,9 @@ class ColPali(nn.Module):
 
     def text_fwd(self, input_ids: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """input_ids [B, T] -> per-token embeddings [B, T, D] f32, pad tokens
-        exact zeros. The DeepSeek decoder's batches on the card run as CUDA
-        graphs (``utils/graphs.py``), its routes and expert loads handed to
-        its sink and counts after each replay."""
+        exact zeros. The MoE decoders' batches on the card run as CUDA
+        graphs (``utils/graphs.py``), their routes and expert loads handed to
+        their sink and counts after each replay."""
         if mask is None:
             mask = torch.ones_like(input_ids)
         if self.text_graphs is None or not graphs.applies(input_ids):
@@ -133,7 +139,7 @@ class ColPali(nn.Module):
         return out
 
     def _text_routed(self, input_ids: torch.Tensor, mask: torch.Tensor):
-        """(``_text``'s output, the DeepSeek decoder's chosen experts [MoE
+        """(``_text``'s output, the MoE decoder's chosen experts [MoE
         layers, B*T, k], its expert loads [MoE layers, E]), the last two made
         apart from the decoder's sink and counts: a forward that changes no
         state outside its outputs, which a graph can replay."""
@@ -270,6 +276,18 @@ def colpali_deepseek_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: C
     their own device part by part: each part a mapping that holds whole
     layers, dropped by the caller once converted, so the model's weights
     and one part are all there is at once. Every weight must be filled."""
+    return _colpali_from_hf_parts(parts, cfg, image_suffix_ids, dtype, layer_from_hf)
+
+
+def colpali_granite_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: ColPaliConfig, image_suffix_ids, *,
+                            dtype) -> ColPali:
+    """:func:`colpali_deepseek_from_hf` for the Granite decoder: its layers in
+    ``GraniteMoeHybridModel``'s names under ``vlm.model.language_model``
+    (``granite.layer_from_hf``)."""
+    return _colpali_from_hf_parts(parts, cfg, image_suffix_ids, dtype, granite.layer_from_hf)
+
+
+def _colpali_from_hf_parts(parts, cfg: ColPaliConfig, image_suffix_ids, dtype, layer_fn) -> ColPali:
     model = ColPali(cfg, image_suffix_ids, device="meta", dtype=dtype)
     lm = cfg.gemma
     device = None
@@ -289,7 +307,7 @@ def colpali_deepseek_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: C
                  for k, v in state.items()}
         layers = {int(k[len(LM_PREFIX) + 8 :].split(".")[0]) for k in sd if k.startswith(f"{LM_PREFIX}.layers.")}
         for i in sorted(layers):
-            state.update({f"gemma.{k}": v for k, v in layer_from_hf(sd, LM_PREFIX, lm, i, dtype).items()})
+            state.update({f"gemma.{k}": v for k, v in layer_fn(sd, LM_PREFIX, lm, i, dtype).items()})
         unexpected = model.load_state_dict(state, strict=False, assign=True).unexpected_keys
         if unexpected:
             raise KeyError(f"tensors with no place in the model: {unexpected[:5]}")
@@ -326,8 +344,14 @@ def load_colpali(info: ModelInfo, *, device, dtype=torch.bfloat16, checkpoint_di
 def debug_colpali_config(image_size: int = 28, decoder: str = "gemma") -> ColPaliConfig:
     """The debug ColPali; ``decoder`` "deepseek": its language model the
     DeepSeek decoder at width 64, one dense layer then 2 MoE layers of 8
-    experts, top-2, 2 shared."""
-    if decoder == "deepseek":
+    experts, top-2, 2 shared; "granite": the Granite decoder at width 64, 3
+    Mamba-2 layers (16 heads of 8, state 16, chunk 8) and one attention layer
+    (4 heads of 16, 2 KV heads), 8 experts of 32 at top-2 and a shared 48."""
+    if decoder == "granite":
+        lm = GraniteConfig(vocab_size=512, dim=64, layer_types=("mamba", "attention", "mamba", "mamba"), heads=4,
+                           kv_heads=2, moe_dim=32, n_experts=8, top_k=2, shared_dim=48, ssm_heads=16, ssm_head_dim=8,
+                           state=16, chunk=8, attention_multiplier=1 / 16)
+    elif decoder == "deepseek":
         lm = DeepseekConfig(vocab_size=512, dim=64, layers=3, heads=4, mlp_dim=96, moe_dim=32, n_experts=8, top_k=2,
                             n_shared=2, kv_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_dim=16, rope_theta=10000.0)
     else:
@@ -345,15 +369,16 @@ def debug_colpali_config(image_size: int = 28, decoder: str = "gemma") -> ColPal
 
 def load_debug_colpali(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32):
     """Random-init small ColPali (28 px images, 4 patches) for offline runs;
-    the DeepSeek variant (``info.decoder``) queries through ColPali's prompt
-    on the word tokenizer."""
+    the DeepSeek and Granite variants (``info.decoder``) query through
+    ColPali's prompt on the word tokenizer."""
     from .arch import colpali_word_tokenizer
     from .zoo import LoadedModel, hash_tokenizer
 
     cfg = debug_colpali_config(decoder=info.decoder)
     pre = PreprocessConfig(image_size=cfg.vision.image_size, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD)
     vocab = cfg.gemma.vocab_size
-    tokenize = colpali_word_tokenizer(vocab) if info.decoder == "deepseek" else hash_tokenizer(vocab, 16, vocab - 1)
+    moe = info.decoder in ("deepseek", "granite")
+    tokenize = colpali_word_tokenizer(vocab) if moe else hash_tokenizer(vocab, 16, vocab - 1)
     return LoadedModel(
         info=info,
         cfg=cfg,

@@ -9,6 +9,11 @@ They differ only in the embedding, the RMSNorm, the q/k/v projections and the
 MLP, which each model's module gives (``models/gemma.py``,
 ``models/qwen3.py``); Gemma and Qwen3 inherit the rest from here.
 
+The two MoE decoders (``models/deepseek.py``, ``models/granite.py``) take
+from here :class:`RoutedLM`, the base that keeps each expert's routed rows
+and each forward's chosen experts, and the pieces both build their layers
+from: :func:`rms_norm`, :func:`swiglu_mlp`, :func:`param` and :func:`owned`.
+
 The KV cache is ``{"k", "v"}``, each ``[L, B, KVH, cache_len, Dh]`` in the
 model dtype: the JAX ``[L, B, cache_len, KVH, Dh]`` with the token and head
 axes swapped, so a decode step reads each head's keys as one contiguous
@@ -22,13 +27,46 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..ops.moe import swiglu
 from ..parallel.mesh import copy_to_model, reduce_from_model
 from ..parallel.sp import shard_tokens
 from .decoder_attn import decode_attention, grouped_attention
 from .layers import matmul_f32
+
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with f32 statistics and a ``w`` gain, rounded once to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
+    """``down(silu(x @ gate) * (x @ up))``, the activation in f32 rounded once
+    (``ops/moe.py:swiglu``: the kernel on the card)."""
+    return swiglu(x @ gate_up) @ down
+
+
+def param(shape, gen, device, dtype, *, std: float | None = 0.02) -> nn.Parameter:
+    """N(0, std) drawn from ``gen`` (ones where std is None), or an empty
+    tensor on ``meta``."""
+    if torch.device(device).type == "meta":
+        t = torch.empty(shape, device=device, dtype=dtype)
+    elif std is None:
+        t = torch.ones(shape, device=device, dtype=dtype)
+    else:
+        t = (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def owned(x: torch.Tensor, dtype) -> torch.Tensor:
+    """A contiguous copy of x in ``dtype`` on its device, sharing no storage
+    with it, so a converted weight never keeps its source alive."""
+    return torch.empty(x.shape, dtype=dtype, device=x.device).copy_(x)
 
 
 def _row_product(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
@@ -173,3 +211,36 @@ class DecoderLM(nn.Module):
             x = layer.decode(x, positions, kv["k"][i], kv["v"][i], write_idx, cache_valid)
         x = self.norm(self.final_norm, x, self.cfg.rms_eps)
         return self.lm_logits(x)[:, 0], kv
+
+
+class RoutedLM(DecoderLM):
+    """A decoder whose MoE layers report their routing: each expert's routed
+    rows a MoE layer on the device (``expert_loads`` [moe layers, E]) and,
+    where ``route_sink`` is a list, each forward's chosen experts. A subclass
+    has ``cfg.moe_layers`` and ``cfg.n_experts``."""
+
+    expert_loads: torch.Tensor | None = None
+    route_sink: list | None = None
+
+    def take_expert_loads(self) -> np.ndarray | None:
+        """Each expert's routed rows a MoE layer since the last call, [moe
+        layers, E] int64 on the host (a read of the device: call it after a
+        barrier), the device counts then zeroed; None before any forward."""
+        if self.expert_loads is None:
+            return None
+        out = self.expert_loads.cpu().numpy().copy()
+        with torch.inference_mode():  # the counts are made under the engine's inference mode
+            self.expert_loads.zero_()
+        return out
+
+    def _routing_state(self, dev: torch.device) -> list | None:
+        """Before a forward on ``dev``: the expert loads made there where they
+        are not, and the forward's route list appended to the sink (None
+        without one)."""
+        if self.expert_loads is None or self.expert_loads.device != dev:
+            self.expert_loads = torch.zeros(self.cfg.moe_layers, self.cfg.n_experts, dtype=torch.int64, device=dev)
+        if self.route_sink is None:
+            return None
+        routes: list = []
+        self.route_sink.append(routes)
+        return routes

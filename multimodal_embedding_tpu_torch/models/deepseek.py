@@ -37,7 +37,7 @@ HF ``DeepseekV3`` layer on the tensors' own device.
 Each model keeps a :class:`~..utils.profiling.Tally` (``tally``: the MoE's
 spans and ``moe.routed_rows``) and, on the device, each expert's routed rows
 a MoE layer (``expert_loads``, read and cleared by
-:meth:`DeepseekLM.take_expert_loads`). Where ``route_sink`` is a list, each
+:meth:`RoutedLM.take_expert_loads`). Where ``route_sink`` is a list, each
 forward appends a list of its MoE layers' chosen experts, ``[B*T, top_k]``
 a layer (the tensors the router made; nothing is copied).
 """
@@ -47,14 +47,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Mapping
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.moe import moe, swiglu
+from ..ops.moe import moe
 from ..utils.profiling import Tally
-from .decoder import DecoderLayer, DecoderLM
+from .decoder import DecoderLayer, RoutedLM, owned, param, rms_norm, swiglu_mlp
 from .decoder_attn import grouped_attention
 
 
@@ -117,13 +116,6 @@ def deepseek_config_from_hf(c) -> DeepseekConfig:
 KV_NORM_EPS = 1e-6  # the latent's RMSNorm (``kv_a_layernorm``) takes DeepseekV3RMSNorm's default
 
 
-def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm with f32 statistics and a ``w`` gain, rounded once to x's dtype."""
-    xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (y * w.float()).to(x.dtype)
-
-
 def rope_rotation(positions: torch.Tensor, d: int, theta: float) -> torch.Tensor:
     """complex64 [B, T, 1, d / 2]: each position's rotation of the rope's
     frequency pairs, ``exp(i * position / theta ** (2j / d))``, in f32."""
@@ -143,24 +135,6 @@ def rope_interleaved(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def swiglu_mlp(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
-    """``down(silu(x @ gate) * (x @ up))``, the activation in f32 rounded once
-    (``ops/moe.py:swiglu``: the kernel on the card)."""
-    return swiglu(x @ gate_up) @ down
-
-
-def _param(shape, gen, device, dtype, *, std: float | None = 0.02) -> nn.Parameter:
-    """N(0, std) drawn from ``gen`` (ones where std is None), or an empty
-    tensor on ``meta``."""
-    if torch.device(device).type == "meta":
-        t = torch.empty(shape, device=device, dtype=dtype)
-    elif std is None:
-        t = torch.ones(shape, device=device, dtype=dtype)
-    else:
-        t = (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
-    return nn.Parameter(t, requires_grad=False)
-
-
 class DeepseekLayer(DecoderLayer):
     """``ln1``, ``attn.{q,kv_a,kv_norm,kv_b,o}``, ``ln2`` and ``mlp``: a
     dense layer's ``{gate_up,down}``, a MoE layer's ``{router,bias,w13,w2,
@@ -174,7 +148,7 @@ class DeepseekLayer(DecoderLayer):
         d, h = cfg.dim, cfg.heads
 
         def p(*shape, **kw):
-            return _param(shape, gen, device, kw.pop("dtype", dtype), **kw)
+            return param(shape, gen, device, kw.pop("dtype", dtype), **kw)
 
         self.ln1, self.ln2 = p(d, std=None), p(d, std=None)
         self.attn = nn.ParameterDict({
@@ -254,7 +228,7 @@ class DeepseekLayer(DecoderLayer):
         raise NotImplementedError("the DeepSeek decoder runs no generation")
 
 
-class DeepseekLM(DecoderLM):
+class DeepseekLM(RoutedLM):
     """Token embedding table ``embed`` [V, D], ``layers.<i>``, ``final_norm``."""
 
     norm = staticmethod(rms_norm)
@@ -264,8 +238,8 @@ class DeepseekLM(DecoderLM):
         self.cfg = cfg
         self.layers = nn.ModuleList(DeepseekLayer(cfg, i, gen=gen, device=device, dtype=dtype)
                                     for i in range(cfg.layers))
-        self.embed = _param((cfg.vocab_size, cfg.dim), gen, device, dtype)
-        self.final_norm = _param((cfg.dim,), gen, device, dtype, std=None)
+        self.embed = param((cfg.vocab_size, cfg.dim), gen, device, dtype)
+        self.final_norm = param((cfg.dim,), gen, device, dtype, std=None)
         self.tally = Tally()
         self.expert_loads: torch.Tensor | None = None  # [moe layers, E] int64 on the device
         self.route_sink: list | None = None
@@ -274,40 +248,17 @@ class DeepseekLM(DecoderLM):
         """The embedding rows, unscaled."""
         return self.embed[input_ids.long()]
 
-    def take_expert_loads(self) -> np.ndarray | None:
-        """Each expert's routed rows a MoE layer since the last call, [moe
-        layers, E] int64 on the host (a read of the device: call it after a
-        barrier), the device counts then zeroed; None before any forward."""
-        if self.expert_loads is None:
-            return None
-        out = self.expert_loads.cpu().numpy().copy()
-        with torch.inference_mode():  # the counts are made under the engine's inference mode
-            self.expert_loads.zero_()
-        return out
-
     def forward(self, inputs_embeds: torch.Tensor, attn_mask: torch.Tensor | None = None,
                 causal: bool = True, sp=None) -> torch.Tensor:
         """inputs_embeds [B, T, D] -> final hidden [B, T, D]: causal, with
         ``attn_mask`` [B, T] (nonzero = valid) as a key mask."""
         cfg = self.cfg
-        dev = inputs_embeds.device
-        if self.expert_loads is None or self.expert_loads.device != dev:
-            self.expert_loads = torch.zeros(cfg.moe_layers, cfg.n_experts, dtype=torch.int64, device=dev)
-        routes = None
-        if self.route_sink is not None:
-            routes = []
-            self.route_sink.append(routes)
+        routes = self._routing_state(inputs_embeds.device)
         rope: dict = {}
         for layer in self.layers:
             layer.tally, layer.routes, layer.rope = self.tally, routes, rope
             layer.loads = self.expert_loads[layer.index - cfg.first_dense] if layer.is_moe else None
         return self.hidden_states(inputs_embeds, attn_mask, causal, sp)
-
-
-def owned(x: torch.Tensor, dtype) -> torch.Tensor:
-    """A contiguous copy of x in ``dtype`` on its device, sharing no storage
-    with it, so a converted weight never keeps its source alive."""
-    return torch.empty(x.shape, dtype=dtype, device=x.device).copy_(x)
 
 
 def layer_from_hf(sd: Mapping[str, torch.Tensor], prefix: str, cfg: DeepseekConfig, index: int,

@@ -35,7 +35,7 @@ class ModelInfo:
     trust_remote_code: bool = False
     preprocess: PreprocessConfig | None = None
     text_max_len: int = 77
-    decoder: str = "gemma"  # a colpali model's language model: "gemma" or "deepseek" (models/deepseek.py)
+    decoder: str = "gemma"  # a colpali model's language model: "gemma", "deepseek" or "granite" (models/<name>.py)
 
 
 MODEL_REGISTRY: list[ModelInfo] = [
@@ -127,6 +127,20 @@ EXTRA_MODELS: list[ModelInfo] = [
         ),
         text_max_len=64,
         decoder="deepseek",
+    ),
+    # Granite-4.0-H-Small's language model (a hybrid of 36 Mamba-2 and 4 NoPE
+    # GQA layers, each with 72 routed experts of which 10 a token and one
+    # shared) in the same place; random weights only
+    ModelInfo(
+        name="ColPali-Granite-4.0-H-Small",
+        hf_id="ibm-granite/granite-4.0-h-small",
+        type="colpali",
+        batch_size=8,
+        preprocess=PreprocessConfig(
+            image_size=448, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD
+        ),
+        text_max_len=64,
+        decoder="granite",
     ),
 ]
 

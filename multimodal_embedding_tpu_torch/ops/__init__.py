@@ -11,10 +11,12 @@ from ..utils.profiling import KERNELS
 # launch (``fused_attention`` or ``fused_attention_qkv``) that ran the
 # warpgroup body (``attention_cuda.uses_wgmma``). ``moe_swiglu`` and
 # ``moe_combine`` are the DeepSeek decoder's SwiGLU activations and MoE
-# combines (``ops/moe_cuda.py``): 53 and 26 a Kimi-VL-A3B forward.
+# combines (``ops/moe_cuda.py``): 53 and 26 a Kimi-VL-A3B forward, 80 and 40
+# a Granite-4.0-H-Small one. ``ssm_scan`` is the Granite decoder's state-space
+# scan (``ops/ssm_cuda.py``), one a Mamba-2 layer: 36 a forward.
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
                "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm",
-               "fused_attention_wgmma", "moe_swiglu", "moe_combine")
+               "fused_attention_wgmma", "moe_swiglu", "moe_combine", "ssm_scan")
 
 
 def launch_counts() -> dict[str, int]:

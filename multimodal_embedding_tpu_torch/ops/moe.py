@@ -2,19 +2,24 @@
 routed rows by expert, one grouped product a projection, and the weighted
 combine back to the tokens, all on the device with no host sync.
 
-The equations are DeepSeek-V3's (``transformers`` ``DeepseekV3TopkRouter``
-and ``DeepseekV3MoE``), for one expert group (``n_group`` = ``topk_group`` =
-1, as Kimi-VL-A3B publishes):
+Two routers, one a model, each chosen by the layer that calls it:
 
-- logits ``x @ W^T`` in f32 (the hidden states and the router weight cast
-  to f32), scores ``sigmoid(logits)``;
-- the ``k`` experts of the largest ``score + bias``: the correction bias
-  decides the choice only;
-- each chosen expert's weight is its score, over the chosen scores' sum
-  (+ 1e-20) where ``normalize``, times ``scale``;
-- each expert a SwiGLU MLP, ``down(silu(gate x) * up x)``; the token's
-  output the weighted sum of its experts' outputs, accumulated in f32 and
-  rounded once to the hidden dtype, then the shared experts' output added.
+- DeepSeek-V3's (:func:`route`, :func:`moe`; ``transformers``
+  ``DeepseekV3TopkRouter`` and ``DeepseekV3MoE``), for one expert group
+  (``n_group`` = ``topk_group`` = 1, as Kimi-VL-A3B publishes): logits
+  ``x @ W^T`` in f32 (the hidden states and the router weight cast to f32),
+  scores ``sigmoid(logits)``; the ``k`` experts of the largest ``score +
+  bias`` (the correction bias decides the choice only); each chosen expert's
+  weight its score, over the chosen scores' sum (+ 1e-20) where
+  ``normalize``, times ``scale``;
+- Granite-4.0-H's (:func:`route_softmax`, :func:`moe_softmax`;
+  ``GraniteMoeHybridTopKGating``): logits ``x @ W^T`` in f32, the ``k``
+  experts of the largest logits, no bias, their weights the softmax of the
+  ``k`` chosen logits, no scale.
+
+Then, for both, each expert a SwiGLU MLP, ``down(silu(gate x) * up x)``; the
+token's output the weighted sum of its experts' outputs, accumulated in f32
+and rounded once to the hidden dtype, then the shared experts' output added.
 
 The routed rows (token, choice) are sorted by expert (stable, so a token's
 rows keep their order within an expert), the experts' row ends found by a
@@ -62,24 +67,36 @@ class Routing:
     weights: torch.Tensor  # [n, k] f32: each choice's combine weight
 
 
+def _sorted(experts: torch.Tensor, weights: torch.Tensor, n_experts: int) -> Routing:
+    """The routed rows of ``experts`` [n, k] sorted by expert."""
+    top_k = experts.shape[1]
+    # order: each sorted row's place among the unsorted (token * k + choice)
+    flat_sorted, order = torch.sort(experts.reshape(-1), stable=True)
+    ids = torch.arange(n_experts, device=experts.device, dtype=flat_sorted.dtype)
+    ends = torch.searchsorted(flat_sorted, ids, right=True)
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    rows = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=experts.device))
+    return Routing(experts, order // top_k, rows.view(-1, top_k), ends.to(torch.int32), counts, weights)
+
+
 def route(x: torch.Tensor, w_router: torch.Tensor, bias: torch.Tensor, *, top_k: int, scale: float,
           normalize: bool) -> Routing:
-    """Route tokens x [n, D] over the experts of ``w_router`` [E, D] with the
-    correction ``bias`` [E]."""
-    n_experts = w_router.shape[0]
+    """DeepSeek-V3's routing of tokens x [n, D] over the experts of
+    ``w_router`` [E, D] with the correction ``bias`` [E]."""
     scores = torch.sigmoid(x.float() @ w_router.float().T)  # [n, E]
     experts = torch.topk(scores + bias.float(), top_k, dim=-1, sorted=False).indices
     weights = scores.gather(1, experts)
     if normalize:
         weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
-    weights = weights * scale
-    # order: each sorted row's place among the unsorted (token * k + choice)
-    flat_sorted, order = torch.sort(experts.reshape(-1), stable=True)
-    ids = torch.arange(n_experts, device=x.device, dtype=flat_sorted.dtype)
-    ends = torch.searchsorted(flat_sorted, ids, right=True)
-    counts = torch.diff(ends, prepend=ends.new_zeros(1))
-    rows = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=x.device))
-    return Routing(experts, order // top_k, rows.view(-1, top_k), ends.to(torch.int32), counts, weights)
+    return _sorted(experts, weights * scale, w_router.shape[0])
+
+
+def route_softmax(x: torch.Tensor, w_router: torch.Tensor, *, top_k: int) -> Routing:
+    """Granite-4.0-H's routing of tokens x [n, D] over the experts of
+    ``w_router`` [E, D]: the top ``top_k`` f32 logits, weighted by their
+    softmax."""
+    top = torch.topk(x.float() @ w_router.float().T, top_k, dim=-1, sorted=False)
+    return _sorted(top.indices, torch.softmax(top.values, dim=-1), w_router.shape[0])
 
 
 def _grouped_plain(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
@@ -137,18 +154,31 @@ def combine(y: torch.Tensor, r: Routing, shared: torch.Tensor | None = None) -> 
 def moe(x: torch.Tensor, router: dict, w13: torch.Tensor, w2: torch.Tensor, shared: Callable | None, *,
         top_k: int, scale: float, normalize: bool, tally: Tally,
         loads: torch.Tensor | None = None) -> tuple[torch.Tensor, Routing]:
-    """A MoE layer's MLP over tokens x [n, D]: ([n, D] in x's dtype, the
-    routing). ``router`` holds ``w`` [E, D] and ``bias`` [E]; w13 [E, 2I, D]
-    the experts' gate and up projections, w2 [E, D, I] their down; the
-    routed sum, rounded to x's dtype, plus ``shared(x)`` (the shared
+    """A DeepSeek-V3 MoE layer's MLP over tokens x [n, D]: ([n, D] in x's
+    dtype, the routing). ``router`` holds ``w`` [E, D] and ``bias`` [E]; w13
+    [E, 2I, D] the experts' gate and up projections, w2 [E, D, I] their down;
+    the routed sum, rounded to x's dtype, plus ``shared(x)`` (the shared
     experts, where given). Each expert's rows are added to ``loads`` [E] on
     the device where given; the host counts ``moe.routed_rows`` from the
     shapes. Spans: ``moe.route``, ``moe.experts``, ``moe.combine``."""
+    return _dispatch(x, lambda: route(x, router["w"], router["bias"], top_k=top_k, scale=scale, normalize=normalize),
+                     w13, w2, shared, tally, loads)
+
+
+def moe_softmax(x: torch.Tensor, w_router: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor,
+                shared: Callable | None, *, top_k: int, tally: Tally,
+                loads: torch.Tensor | None = None) -> tuple[torch.Tensor, Routing]:
+    """:func:`moe` for a Granite-4.0-H MoE layer: its router ``w_router``
+    [E, D] (:func:`route_softmax`), the rest as :func:`moe`."""
+    return _dispatch(x, lambda: route_softmax(x, w_router, top_k=top_k), w13, w2, shared, tally, loads)
+
+
+def _dispatch(x, routing: Callable[[], Routing], w13, w2, shared, tally: Tally, loads):
     with tally.span("moe.route"):
-        r = route(x, router["w"], router["bias"], top_k=top_k, scale=scale, normalize=normalize)
+        r = routing()
         if loads is not None:
             loads.add_(r.counts)
-    tally.count("moe.routed_rows", x.shape[0] * top_k)
+    tally.count("moe.routed_rows", r.experts.numel())
     with tally.span("moe.experts"):
         h = grouped_mm(x[r.token], w13, r.ends)
         y = grouped_mm(swiglu(h), w2, r.ends)

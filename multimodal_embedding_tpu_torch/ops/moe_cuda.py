@@ -11,7 +11,7 @@ kernels of ``csrc/moe.cu``.
 
 Both take float32 or bfloat16 tensors and raise on anything else the kernels
 do not take (dtype, contiguity, 16-byte alignment, a width that is not a
-whole number of 16-byte vectors, more than 8 choices); they run no backward.
+whole number of 16-byte vectors, more than 16 choices); they run no backward.
 ``ops/moe.py`` sends CUDA tensors here and keeps the plain versions for CPU
 tensors. Each launch is counted in ``ops.launch_counts()`` as ``moe_swiglu``
 or ``moe_combine`` and spanned as ``mme.kernel.moe_swiglu`` or
@@ -30,7 +30,7 @@ from ..utils.profiling import KERNELS
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # of csrc/moe.cu
-MAX_CHOICES = 8
+MAX_CHOICES = 16
 
 _c = ctypes
 _SIGNATURES = {

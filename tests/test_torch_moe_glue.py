@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_embedding_tpu_torch import ops
-from multimodal_embedding_tpu_torch.models.deepseek import swiglu_mlp
+from multimodal_embedding_tpu_torch.models.decoder import swiglu_mlp
 from multimodal_embedding_tpu_torch.ops import moe as tmoe
 from multimodal_embedding_tpu_torch.ops import moe_cuda
 from multimodal_embedding_tpu_torch.utils.profiling import KERNELS
@@ -136,8 +136,8 @@ COMBINE_REFUSED = {
     "non-contiguous": (dict(y=torch.zeros(16, 12, dtype=torch.bfloat16).t()), ValueError, "contiguous"),
     "misaligned": (dict(y=torch.zeros(193, dtype=torch.bfloat16)[1:].view(12, 16)), ValueError, "16-byte aligned"),
     "odd width": (dict(y=torch.zeros(12, 12, dtype=torch.bfloat16), shared=None), ValueError, "multiple of 8"),
-    "too many choices": (dict(rows=torch.zeros(1, 9, dtype=torch.int64), weights=torch.zeros(1, 9), shared=None),
-                         ValueError, "1 to 8"),
+    "too many choices": (dict(rows=torch.zeros(1, 17, dtype=torch.int64), weights=torch.zeros(1, 17), shared=None),
+                         ValueError, "1 to 16"),
     "rows dtype": (dict(rows=torch.zeros(4, 3, dtype=torch.int32)), TypeError, "rows int64"),
     "weights dtype": (dict(weights=torch.zeros(4, 3, dtype=torch.bfloat16)), TypeError, "weights float32"),
     "non-contiguous rows": (dict(rows=torch.zeros(3, 4, dtype=torch.int64).t()), ValueError, "contiguous rows"),
