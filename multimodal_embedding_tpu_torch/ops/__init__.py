@@ -13,10 +13,13 @@ from ..utils.profiling import KERNELS
 # ``moe_combine`` are the DeepSeek decoder's SwiGLU activations and MoE
 # combines (``ops/moe_cuda.py``): 53 and 26 a Kimi-VL-A3B forward, 80 and 40
 # a Granite-4.0-H-Small one. ``ssm_scan`` is the Granite decoder's state-space
-# scan (``ops/ssm_cuda.py``), one a Mamba-2 layer: 36 a forward.
+# scan (``ops/ssm_cuda.py``), one a Mamba-2 layer: 36 a forward;
+# ``ssm_scan_chunked`` counts again each scan launch that ran the chunked
+# body (``ssm_cuda.uses_chunked``: bf16).
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
                "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm",
-               "fused_attention_wgmma", "moe_swiglu", "moe_combine", "ssm_scan")
+               "fused_attention_wgmma", "moe_swiglu", "moe_combine", "ssm_scan",
+               "ssm_scan_chunked")
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,8 +9,10 @@ over x [B, T, H, P], dt [B, T, H] (after the softplus), B and C [B, T, N]
 [B, T, H, P] in x's dtype.
 
 :func:`scan` runs the hand-written kernel on CUDA tensors (``ops/ssm_cuda.py``,
-``csrc/ssm.cu``: the recurrence token by token, the state in registers) and
-:func:`scan_plain` on CPU tensors; the plain version never runs on the card.
+``csrc/ssm.cu``: in bf16 this chunked form in chunks of 64 tokens on the
+tensor cores, in f32 the recurrence token by token; the state in registers
+either way) and :func:`scan_plain` on CPU tensors; the plain version never
+runs on the card.
 
 :func:`scan_plain` is the chunked form of the same recurrence (Mamba-2's SSD,
 arXiv:2405.21060, as ``transformers``' ``torch_forward`` writes it), in f32:
@@ -58,8 +60,8 @@ def scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tens
 
 def scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
          *, chunk: int) -> torch.Tensor:
-    """:func:`scan_plain` on CPU tensors; the kernel on the card, which walks
-    the tokens one by one and takes no chunk."""
+    """:func:`scan_plain` on CPU tensors; the kernel on the card, which takes
+    no chunk (its chunked body's chunk is fixed at 64 tokens)."""
     if x.device.type == "cpu":
         return scan_plain(x, dt, A, B, C, D, chunk=chunk)
     return ssm_cuda.scan(x, dt, A, B, C, D)

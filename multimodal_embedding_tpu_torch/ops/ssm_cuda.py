@@ -1,6 +1,11 @@
 """Mamba-2's state-space scan on the card: the hand-written Hopper kernel of
-``csrc/ssm.cu``, the recurrence token by token with each head's state in
-registers (``ops/ssm.py`` has the equations and the plain version).
+``csrc/ssm.cu``, each head's f32 state in registers for the whole sequence
+(``ops/ssm.py`` has the equations and the plain version). The inputs' dtype
+alone picks one of the kernel's two bodies (:func:`uses_chunked`, the only
+place the rule lives): bf16 runs the chunked (SSD) body, chunks of 64 tokens
+whose products are ``wgmma`` warpgroup products, every operand the kernel
+builds in f32 split into two bf16 terms; f32 runs the recurrent body, the
+recurrence token by token on the CUDA cores.
 
 :func:`scan` takes x ``[B, T, H, P]`` whose heads and channels are
 contiguous (a view into the conv's output, read through its token stride),
@@ -9,10 +14,10 @@ columns (views too), A ``[H]`` in f32 and D ``[H]``; x, dt, B, C and D in
 one dtype, float32 or bfloat16. It returns y ``[B, T, H, P]`` contiguous in
 that dtype and raises on anything the kernel does not take (a head dim above
 128, a state size other than 16, 32, 64 or 128, other strides); it runs no
-backward. Each launch is counted in ``ops.launch_counts()`` as ``ssm_scan``
-and spanned as ``mme.kernel.ssm_scan``. The kernel launches on the current
-stream into ``torch.empty`` with no host sync, so a CUDA graph can capture
-it.
+backward. Each launch is counted in ``ops.launch_counts()`` as ``ssm_scan``,
+a launch of the chunked body also as ``ssm_scan_chunked``, and spanned as
+``mme.kernel.ssm_scan``. The kernel launches on the current stream into
+``torch.empty`` with no host sync, so a CUDA graph can capture it.
 """
 
 from __future__ import annotations
@@ -33,6 +38,14 @@ _ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_longlong, _c.c_longlong, _c.c_void_p, _
              _c.c_longlong, _c.c_longlong, _c.c_void_p, _c.c_void_p, _c.c_longlong, _c.c_longlong, _c.c_longlong,
              _c.c_longlong, _c.c_longlong, _c.c_void_p]
 _fns: dict = {}
+
+
+def uses_chunked(dtype: torch.dtype) -> bool:
+    """Whether a launch in ``dtype`` runs the kernel's chunked body: bf16
+    does, f32 keeps the recurrent body. The kernel makes the same choice from
+    the dtype code it is passed, and the launch counts it, so the two never
+    disagree."""
+    return dtype == torch.bfloat16
 
 
 def _fn():
@@ -76,9 +89,17 @@ def scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C:
     y = torch.empty((b, t, h, p), dtype=x.dtype, device=x.device)
     if y.numel():
         with KERNELS.span("kernel.ssm_scan"):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            build.check(_fn()(_DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(),
-                              A.data_ptr(), B.data_ptr(), C.data_ptr(), B.stride(0), B.stride(1), D.data_ptr(),
-                              y.data_ptr(), b, t, h, p, B.shape[2], stream), "state-space scan kernel")
+            _run(x, dt, A, B, C, D, y)
         KERNELS.count("ssm_scan")
+        if uses_chunked(x.dtype):
+            KERNELS.count("ssm_scan_chunked")
     return y
+
+
+def _run(x, dt, A, B, C, D, y) -> None:
+    """The kernel's launch on the current stream, raising on its error code."""
+    b, t, h, p = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(_fn()(_DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0), x.stride(1), dt.data_ptr(), A.data_ptr(),
+                      B.data_ptr(), C.data_ptr(), B.stride(0), B.stride(1), D.data_ptr(), y.data_ptr(), b, t, h, p,
+                      B.shape[2], stream), "state-space scan kernel")

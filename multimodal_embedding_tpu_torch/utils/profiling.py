@@ -51,7 +51,7 @@ device instead (``expert_loads``, one add a layer, no sync) and read by
 ``take_expert_loads`` after a barrier. :data:`KERNELS` also counts
 ``grouped_mm``, each grouped expert product on the card, the decoders'
 ``moe_swiglu`` and ``moe_combine`` kernels and the Granite decoder's
-``ssm_scan``.
+``ssm_scan`` (again as ``ssm_scan_chunked`` on the kernel's chunked body).
 
 A text batch on the card replays a CUDA graph (``utils/graphs.py``): the
 replay opens none of the forward's spans, and adds again the counts that

@@ -80,12 +80,14 @@ def test_launch_counts_put_each_launch_under_one_name(monkeypatch):
         attention_cuda._launch_qkv(torch.zeros(1, 3, 48, dtype=torch.bfloat16), None, True, 1.0, 2, 2)
     for name, n in (("maxsim", 4), ("maxsim_f32", 1), ("preprocess", 4), ("fused_res_norm_matmul", 6),
                     ("fused_layer_norm", 8), ("fused_res_norm_rows", 5), ("mlp_activation", 7), ("grouped_mm", 9),
-                    ("moe_swiglu", 10), ("moe_combine", 11), ("ssm_scan", 12)):
+                    ("moe_swiglu", 10), ("moe_combine", 11), ("ssm_scan", 12),
+                    ("ssm_scan_chunked", 3)):
         KERNELS.count(name, n)
     counts = ops.launch_counts()
     assert counts == {"fused_attention": 4, "fused_attention_f32": 3, "fused_attention_qkv": 2, "preprocess": 4,
                       "maxsim": 4, "maxsim_f32": 1, "fused_res_norm_matmul": 6, "fused_layer_norm": 8,
                       "fused_res_norm_rows": 5, "mlp_activation": 7, "grouped_mm": 9,
-                      "fused_attention_wgmma": 6, "moe_swiglu": 10, "moe_combine": 11, "ssm_scan": 12}
+                      "fused_attention_wgmma": 6, "moe_swiglu": 10, "moe_combine": 11, "ssm_scan": 12,
+                      "ssm_scan_chunked": 3}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
