@@ -5,7 +5,7 @@
     python3 chip_smoke.py --cases maxsim,preprocess    # the build and these phase-2 cases only
                                                       # (sets: activation, attention, attention_qkv,
                                                       # maxsim, moe_glue, prologue, layernorm, preprocess,
-                                                      # ssm)
+                                                      # ssm, kda)
     python3 chip_smoke.py --attention-cases            # the same as --cases attention
 
 Phases, each of which fails the run (nonzero exit, no result line):
@@ -50,6 +50,13 @@ Phases, each of which fails the run (nonzero exit, no result line):
      time against the recurrence's bound, and a ``ColPali-Granite-4.0-H-Small``
      page batch and caption batch at full width, each forward 36 ``ssm_scan``
      (36 ``ssm_scan_chunked``), 80 ``moe_swiglu`` and 40 ``moe_combine``, the
+     caption batch's graph replays bit-equal to its eager forward); the KDA
+     kernel at Kimi-Linear-48B-A3B's widths against its plain chunked
+     version, at the Kimi-Linear cell's page batch and its two caption
+     batches and a ragged f32 one, with its device time against the
+     recurrence's bound, and a ``ColPali-Kimi-Linear-48B-A3B`` page batch
+     and caption batch at full width, each forward 12 ``kda_scan``, 31
+     ``moe_swiglu`` and 15 ``moe_combine``, the
      caption batch's graph replays bit-equal to its eager forward),
      with the tolerances stated below, and time both, the one
      PyTorch library call that computes the same function (where there is
@@ -1014,19 +1021,24 @@ def _moe_graph_case(name, *, rng, decoder="deepseek", tag="moe_glue"):
     (``ColPali-KimiVL-A3B``): 53 ``moe_swiglu`` and 26 ``moe_combine`` a
     forward; "granite" (``ColPali-Granite-4.0-H-Small``): 80 ``moe_swiglu``,
     40 ``moe_combine`` and 36 ``ssm_scan``, each on the scan's chunked body
-    (36 ``ssm_scan_chunked``), and a page batch (8 pages of 1030 tokens)
-    through ``image_fwd`` with the same counts. The launches of
-    the Kimi main path are phase 3's."""
+    (36 ``ssm_scan_chunked``); "kimi_linear" (``ColPali-Kimi-Linear-48B-A3B``,
+    the benchmark's 16 layers): 31 ``moe_swiglu``, 15 ``moe_combine`` and 12
+    ``kda_scan``.
+    The two hybrids also run a page batch (8 pages of 1030 tokens) through
+    ``image_fwd`` with the same counts. The launches of the Kimi main path
+    are phase 3's."""
     import torch
 
-    from multimodal_embedding_tpu_torch.models.arch import full_colpali_deepseek_config, full_colpali_granite_config
+    from multimodal_embedding_tpu_torch.models.arch import (full_colpali_deepseek_config, full_colpali_granite_config,
+                                                            full_colpali_kimi_linear_config)
     from multimodal_embedding_tpu_torch.models.colpali import ColPali
     from multimodal_embedding_tpu_torch.ops import launch_counts, reset_launch_counts
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
     t0 = time.perf_counter()
-    cfg = full_colpali_granite_config() if decoder == "granite" else full_colpali_deepseek_config()
+    cfg = {"granite": full_colpali_granite_config, "kimi_linear": full_colpali_kimi_linear_config}.get(
+        decoder, full_colpali_deepseek_config)()
     model = ColPali(cfg, COLPALI_SUFFIX_IDS.tolist(), seed=0, device=dev, dtype=torch.bfloat16)
     lm = model.gemma.cfg
     if decoder == "granite":
@@ -1034,9 +1046,14 @@ def _moe_graph_case(name, *, rng, decoder="deepseek", tag="moe_glue"):
                 "ssm_scan": lm.mamba_layers, "ssm_scan_chunked": lm.mamba_layers}
         require(want == {"moe_swiglu": 80, "moe_combine": 40, "grouped_mm": 80, "ssm_scan": 36,
                          "ssm_scan_chunked": 36}, f"moe graph {name}: Granite-4.0-H-Small's layers give {want}")
+    elif decoder == "kimi_linear":
+        want = {"moe_swiglu": 2 * lm.moe_layers + lm.first_dense, "moe_combine": lm.moe_layers,
+                "grouped_mm": 2 * lm.moe_layers, "kda_scan": len(lm.kda_layers)}
+        require(want == {"moe_swiglu": 31, "moe_combine": 15, "grouped_mm": 30, "kda_scan": 12},
+                f"moe graph {name}: Kimi-Linear's 16 layers give {want}")
     else:
         want = {"moe_swiglu": 2 * lm.moe_layers + lm.first_dense, "moe_combine": lm.moe_layers,
-                "grouped_mm": 2 * lm.moe_layers, "ssm_scan": 0, "ssm_scan_chunked": 0}
+                "grouped_mm": 2 * lm.moe_layers, "ssm_scan": 0, "ssm_scan_chunked": 0, "kda_scan": 0}
 
     def counted(fn, *args):
         torch.cuda.synchronize()
@@ -1052,7 +1069,7 @@ def _moe_graph_case(name, *, rng, decoder="deepseek", tag="moe_glue"):
     ids = ids * mask
     page = None
     with torch.inference_mode():
-        if decoder == "granite":
+        if decoder in ("granite", "kimi_linear"):
             pixels = torch.rand(8, cfg.vision.image_size, cfg.vision.image_size, 3, generator=gen, device=dev)
             out, page = counted(model.image_fwd, pixels)
             require(page == want and bool(torch.isfinite(out).all()),
@@ -1163,6 +1180,76 @@ def _ssm_case(name, *, op, rng, **kw):
     if op == "graph":
         return _moe_graph_case(name, rng=rng, decoder="granite", tag="ssm")
     return _ssm_scan_case(name, **kw, rng=rng)
+
+
+def _kda_scan_case(name, *, b, t, rng, dtype="bfloat16", check_rows=None):
+    """The KDA kernel over b sequences of t tokens at Kimi-Linear's widths (32
+    heads of 128; q, k and v SiLU outputs, views into one [b, t, 3 x 4096]
+    tensor as the convs' output holds them; A in [1, 16] a head and dt
+    log-uniform on [0.001, 0.1] a channel; beta a sigmoid) against its plain
+    version on CPU copies of the first ``check_rows`` sequences
+    (``ops/kda.py:kda_plain``; the kernel runs each sequence on its own):
+    within 1e-4 of its largest magnitude, in bf16 plus one bf16 step of the
+    plain output (the card tests' limits); one ``kda_scan`` launch a call; its
+    device time against the bound of the recurrence's work
+    (``perfbench/yardstick_kda.py:kda_work``: q, k and v read and o written
+    once in bf16, g and beta read once in f32, 7 K V operations a token and
+    head at the bf16 peak)."""
+    import math
+
+    import torch
+
+    from multimodal_embedding_tpu_torch.ops import kda, launch_counts, reset_launch_counts
+    from multimodal_embedding_tpu_torch.utils.timing import cuda_time_ms
+    from perfbench import yardstick_kda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    dt_ = getattr(torch, dtype)
+    h, n = 32, 32 * 128
+    qkv = torch.nn.functional.silu(torch.randn(b, t, 3 * n, generator=gen, device=dev)).to(dt_)
+    q, k, v = (x.unflatten(-1, (h, 128)) for x in qkv.split(n, dim=-1))
+    a = 1 + 15 * torch.rand(h, generator=gen, device=dev)
+    u = torch.rand(b, t, h, 128, generator=gen, device=dev)
+    g = -a[:, None] * torch.exp(math.log(1e-3) + u * (math.log(0.1) - math.log(1e-3)))
+    beta = torch.sigmoid(torch.randn(b, t, h, generator=gen, device=dev))
+    args = (q, k, v, g, beta)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = kda.kda(*args)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    rows = b if check_rows is None else check_rows
+    want = kda.kda_plain(*(x[:rows].cpu() for x in args))
+    gf, w = got[:rows].float().cpu(), want.float()
+    top = float(w.abs().max())
+    bf16 = dt_ == torch.bfloat16
+    step = 2.0**-7 * w.abs() if bf16 else torch.zeros_like(w)
+    excess = float(((gf - w).abs() - step - 1e-4 * top).max())
+    err = float((gf - w).abs().max())
+    del got, want, gf, w, step
+    require(counts["kda_scan"] == 1 and excess <= 0,
+            f"kda {name}: {counts['kda_scan']} launches, {excess} past its limit (max {top})")
+    cfg = json.loads((ROOT / "perfbench/configs/colpali-kimi-linear-48b-a3b.json").read_text())
+    flops, nbytes = yardstick_kda.kda_work(cfg, b * t)
+    bms, by = bound_ms(flops, nbytes, "bf16_flops")
+    with torch.inference_mode():
+        dev_ms = device_ms(lambda: kda.kda(*args))
+        ms = cuda_time_ms(lambda: kda.kda(*args))
+    case = {"case": name, "op": "kda", "shape": [b, t, h, 128], "dtype": dtype, "checked_rows": rows,
+            "launches_a_call": counts["kda_scan"], "max_abs_err": err, "excess": excess, "max_abs_out": top,
+            "ms": ms, "device_ms": dev_ms, "bound_ms": bms, "bound_by": by,
+            "bound_pct": None if dev_ms is None else 100.0 * bms / dev_ms, "plain_ms": None, "library_ms": None}
+    print(f"[kda] {json.dumps(case)}")
+    return case
+
+
+def _kda_case(name, *, op="scan", rng, **kw):
+    """One ``kda`` case: ``op`` "scan" or "graph" (the Kimi-Linear decoder's)."""
+    if op == "graph":
+        return _moe_graph_case(name, rng=rng, decoder="kimi_linear", tag="kda")
+    return _kda_scan_case(name, **kw, rng=rng)
 
 
 def _moe_glue_case(name, *, op, rng, **kw):
@@ -1379,6 +1466,20 @@ def ssm_cases() -> list[tuple[str, dict]]:
     ]
 
 
+def kda_cases() -> list[tuple[str, dict]]:
+    # colpali-kimi-linear-48b-a3b.coco-maxsim-kda: a page batch (8 pages of
+    # 1030 tokens, two checked), its T2I caption batch (32 captions) and an
+    # I2T one (128, the engine's text batch) at about 20 tokens; a ragged f32
+    # one; then the whole decoder's launches
+    return [
+        ("kimi-linear page batch", dict(b=8, t=1030, check_rows=2)),
+        ("kimi-linear t2i caption batch", dict(b=32, t=20)),
+        ("kimi-linear i2t caption batch", dict(b=128, t=20, check_rows=16)),
+        ("f32 ragged", dict(b=3, t=37, dtype="float32")),
+        ("ColPali-Kimi-Linear-48B-A3B page and caption graph", dict(op="graph")),
+    ]
+
+
 def preprocess_cases() -> list[tuple[str, dict]]:
     cases = [(f"OpenAI-CLIP-L shortest_edge {h}x{w}->336", dict(h=h, w=w, b=64))
              for (h, w) in ((480, 640), (640, 480), (480, 480), (427, 640))]
@@ -1418,6 +1519,7 @@ CASE_SETS = {
     "activation": (activation_cases, "_activation_case", "activation"),
     "moe_glue": (moe_glue_cases, "_moe_glue_case", "moe_glue"),
     "ssm": (ssm_cases, "_ssm_case", "ssm"),
+    "kda": (kda_cases, "_kda_case", "kda"),
     "preprocess": (preprocess_cases, "_preprocess_case", "preprocess"),
     "maxsim": (maxsim_cases, "_maxsim_case", "maxsim"),
     "attention": (attention_cases, "_attention_case", "attention"),
@@ -1475,6 +1577,9 @@ def phase_kernels() -> list[dict]:
     torch.cuda.empty_cache()
     ssm = [_ssm_case(name, **kw, rng=rng) for name, kw in ssm_cases()]
     (ssm_graph,) = [c for c in ssm if c["op"] == "graph"]
+    torch.cuda.empty_cache()
+    kda = [_kda_case(name, **kw, rng=rng) for name, kw in kda_cases()]
+    (kda_graph,) = [c for c in kda if c["op"] == "graph"]
     root = "multimodal_embedding_tpu_torch/csrc"
     # the f32 bodies are kernels of their own (flash_f32_kernel, tf32x3_kernel)
     # with their own launch counts: their cases and headlines apart
@@ -1524,6 +1629,10 @@ def phase_kernels() -> list[dict]:
          "replaces": "none (the JAX package has no state-space layer): ops/ssm.py:scan_plain, the chunked f32 form",
          "path": "the ColPali-Granite-4.0-H-Small decoder", **_headline(ssm[0]),
          "launches": ssm_graph["caption"]["eager"]["ssm_scan"], "cases": ssm},
+        {"name": "kda_scan", "route": "cuda", "source": f"{root}/kda.cu",
+         "replaces": "none (the JAX package has no linear-attention layer): ops/kda.py:kda_plain, the chunked f32 form",
+         "path": "the ColPali-Kimi-Linear-48B-A3B decoder", **_headline(kda[0]),
+         "launches": kda_graph["caption"]["eager"]["kda_scan"], "cases": kda},
     ]
 
 
@@ -1705,12 +1814,13 @@ def phase_main_path(kernels: list[dict]) -> None:
           f"moe_combine={kimi_counts['moe_combine']} grouped_mm={kimi_counts['grouped_mm']}")
     paths = {"OpenAI-CLIP-L": clip_counts, "ColPali-v1.3": counts, "OpenAI-CLIP-L fused": fused_counts,
              **{r["model"]: r["counts"] for r in others}}
-    for name in ("moe_swiglu", "moe_combine", "grouped_mm", "ssm_scan"):
+    for name in ("moe_swiglu", "moe_combine", "grouped_mm", "ssm_scan", "kda_scan"):
         require(all(c[name] == 0 for c in paths.values()), f"{name} launched off the MoE decoders: {paths}")
-    require(kimi_counts["ssm_scan"] == 0, f"ColPali-KimiVL-A3B launched the scan: {kimi_counts}")
+    require(kimi_counts["ssm_scan"] == 0 and kimi_counts["kda_scan"] == 0,
+            f"ColPali-KimiVL-A3B launched a scan: {kimi_counts}")
     paths["ColPali-KimiVL-A3B"] = kimi_counts
     for k in kernels:
-        if k["name"] == "ssm_scan":  # the Granite decoder's launches are phase 2's forward
+        if k["name"] in ("ssm_scan", "kda_scan"):  # the hybrid decoders' launches are phase 2's forwards
             k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
             continue
         # each kernel's launches on the path that runs it: ColPali for

@@ -135,6 +135,29 @@ def full_colpali_granite_config():
     return ColPaliConfig(vision=base.vision, gemma=lm, embedding_dim=base.embedding_dim, image_token_id=100351)
 
 
+def full_colpali_kimi_linear_config():
+    """ColPali-v1.3's SigLIP-So400m/14-448 tower, projector and 128-d head
+    around Kimi-Linear-48B-A3B-Instruct's language model
+    (huggingface.co/moonshotai/Kimi-Linear-48B-A3B-Instruct ``config.json``)
+    cut to its first 16 layers: at width 2304, KDA layers (32 heads of 128,
+    conv 4) and MLA layers without rope (kv rank 512, q/k 128 + 64, v 128, 32
+    heads) three to one, the MLA at layers 4, 8, 12 and 16 (1-based), the
+    first layer a dense SwiGLU of 9216 and every later one 256 routed experts
+    of width 1024, 8 a token, and one shared; vocabulary 163840. The whole 27
+    layers (48.75 B parameters, 97.5 GB in bf16) do not fit one card; these
+    16 are the benchmark's first pipeline stage (28.3 B, 56.7 GB)."""
+    from .colpali import ColPaliConfig
+    from .kimi_linear import KimiLinearConfig
+
+    base = full_colpali_config()
+    kda = tuple(i for i in range(16) if i % 4 != 3)
+    lm = KimiLinearConfig(vocab_size=163840, dim=2304, layers=16, heads=32, mlp_dim=9216, moe_dim=1024,
+                          n_experts=256, top_k=8, n_shared=1, first_dense=1, kv_rank=512, qk_nope_dim=128,
+                          qk_rope_dim=64, v_dim=128, routed_scale=2.446, norm_topk=True, rope_theta=10000.0,
+                          rms_eps=1e-5, nope=True, kda_layers=kda, kda_heads=32, kda_head_dim=128, conv_width=4)
+    return ColPaliConfig(vision=base.vision, gemma=lm, embedding_dim=base.embedding_dim, image_token_id=163605)
+
+
 def full_jina_config():
     """jinaai/jina-clip-v1: EVA02-B/16 + JinaBERT-base."""
     from .jina import Eva02Config, JinaBertConfig, JinaClipConfig
@@ -170,14 +193,14 @@ def colpali_word_tokenizer(vocab_size: int):
 
 def arch_tokenizer(info, cfg):
     """The offline word-hash tokenizer of an arch model: ColPali's 32-token
-    prompts (the DeepSeek and Granite ColPalis: ColPali's query prompt,
+    prompts (the DeepSeek, Granite and Kimi-Linear ColPalis: ColPali's query prompt,
     :func:`colpali_word_tokenizer`), Jina's registry length with its EOS id 3, and each dual
     encoder's text length with the CLIP EOS id 49407. That id is past the end
     of SigLIP's 32000-row table, where the JAX package's gather clamps it to
     the last row: so the id is ``min(49407, vocab - 1)``, the row JAX reads."""
     from .zoo import hash_tokenizer
 
-    if info.type == "colpali" and info.decoder in ("deepseek", "granite"):
+    if info.type == "colpali" and info.decoder in ("deepseek", "granite", "kimi_linear"):
         return colpali_word_tokenizer(cfg.gemma.vocab_size)
     if info.type == "colpali":
         return hash_tokenizer(cfg.gemma.vocab_size, 32, 1)
@@ -204,8 +227,8 @@ def load_arch_model(name: str, seed: int = 0, *, device, dtype=torch.bfloat16):
     if info.type == "colpali":
         from .colpali import ColPali
 
-        cfg = {"deepseek": full_colpali_deepseek_config, "granite": full_colpali_granite_config}.get(
-            info.decoder, full_colpali_config)()
+        cfg = {"deepseek": full_colpali_deepseek_config, "granite": full_colpali_granite_config,
+               "kimi_linear": full_colpali_kimi_linear_config}.get(info.decoder, full_colpali_config)()
         suffix = np.array(COLPALI_IMAGE_SUFFIX, np.int32)
         return LoadedModel(
             info=info, cfg=cfg, model=ColPali(cfg, suffix, seed=seed, device=device, dtype=dtype),

@@ -15,7 +15,9 @@ Counterpart of ``multimodal_embedding_tpu/models/colpali.py``:
   mask; that model scales neither its token embeddings nor the image
   features, so both enter it as they are; where it is a ``GraniteConfig``,
   Granite-4.0-H's hybrid Mamba-2 and MoE decoder (``granite.py``), causal,
-  which scales both alike by its ``embedding_multiplier``;
+  which scales both alike by its ``embedding_multiplier``; where it is a
+  ``KimiLinearConfig``, Kimi-Linear's hybrid KDA and MLA decoder with its
+  MoE (``kimi_linear.py``), causal, which scales neither;
 - retrieval head: a linear to 128 dims per token in f32, L2-normalized per
   token with ``max(norm, 1e-12)``; query pad tokens are zeroed (HF
   ColPaliForRetrieval's ``emb * mask``, COMPAT #8).
@@ -32,7 +34,8 @@ param tree (numpy), which ``load_colpali`` carries into the module.
 :func:`colpali_deepseek_from_hf` loads the DeepSeek variant from HF-layout
 tensors part by part on their own device (its 15.6 B parameters would take
 62 GB as the host f32 tree), :func:`colpali_granite_from_hf` the Granite one
-(32.2 B).
+(32.2 B), :func:`colpali_kimi_linear_from_hf` the Kimi-Linear one (28.3 B at
+the benchmark's 16 layers).
 """
 
 from __future__ import annotations
@@ -49,11 +52,12 @@ from ..parallel.sp import gather_tokens, sp_mesh_for
 from ..utils import graphs
 from ..utils.graphs import ShapeGraphs
 from .convert import _encoder_from_hf, _lin, _ln, _patch_w, _t, stack_layers
-from . import granite
+from . import granite, kimi_linear
 from .decoder import RoutedLM, owned
 from .deepseek import DeepseekConfig, DeepseekLM, layer_from_hf
 from .gemma import Gemma, GemmaConfig
 from .granite import GraniteConfig, GraniteLM
+from .kimi_linear import KimiLinearConfig, KimiLinearLM
 from .layers import linear
 from .params import load_tree
 from .registry import ModelInfo
@@ -63,7 +67,8 @@ from .towers import VisionConfig, VisionTower, seeded_generator
 @dataclass(frozen=True)
 class ColPaliConfig:
     vision: VisionConfig
-    gemma: GemmaConfig | DeepseekConfig | GraniteConfig  # the language model: Gemma, DeepSeek or Granite
+    # the language model: Gemma, DeepSeek, Granite or Kimi-Linear
+    gemma: GemmaConfig | DeepseekConfig | GraniteConfig | KimiLinearConfig
     embedding_dim: int = 128
     image_token_id: int = 256000
 
@@ -92,7 +97,8 @@ class ColPali(nn.Module):
 
         self.vision = VisionTower(cfg.vision, gen=gen, device=device, dtype=dtype)
         self.mm_proj = nn.ParameterDict({"w": normal((cfg.vision.dim, cfg.gemma.dim)), "b": zeros(cfg.gemma.dim)})
-        lm = {DeepseekConfig: DeepseekLM, GraniteConfig: GraniteLM}.get(type(cfg.gemma), Gemma)
+        lm = {DeepseekConfig: DeepseekLM, GraniteConfig: GraniteLM, KimiLinearConfig: KimiLinearLM}.get(
+            type(cfg.gemma), Gemma)
         self.gemma = lm(cfg.gemma, gen=gen, device=device, dtype=dtype)
         self.emb_proj = nn.ParameterDict({"w": normal((cfg.gemma.dim, cfg.embedding_dim)),
                                           "b": zeros(cfg.embedding_dim)})
@@ -287,6 +293,14 @@ def colpali_granite_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: Co
     return _colpali_from_hf_parts(parts, cfg, image_suffix_ids, dtype, granite.layer_from_hf)
 
 
+def colpali_kimi_linear_from_hf(parts: Iterable[Mapping[str, torch.Tensor]], cfg: ColPaliConfig, image_suffix_ids,
+                                *, dtype) -> ColPali:
+    """:func:`colpali_deepseek_from_hf` for the Kimi-Linear decoder: its layers
+    in ``KimiDecoderLayer``'s names under ``vlm.model.language_model``
+    (``kimi_linear.layer_from_hf``)."""
+    return _colpali_from_hf_parts(parts, cfg, image_suffix_ids, dtype, kimi_linear.layer_from_hf)
+
+
 def _colpali_from_hf_parts(parts, cfg: ColPaliConfig, image_suffix_ids, dtype, layer_fn) -> ColPali:
     model = ColPali(cfg, image_suffix_ids, device="meta", dtype=dtype)
     lm = cfg.gemma
@@ -346,8 +360,15 @@ def debug_colpali_config(image_size: int = 28, decoder: str = "gemma") -> ColPal
     DeepSeek decoder at width 64, one dense layer then 2 MoE layers of 8
     experts, top-2, 2 shared; "granite": the Granite decoder at width 64, 3
     Mamba-2 layers (16 heads of 8, state 16, chunk 8) and one attention layer
-    (4 heads of 16, 2 KV heads), 8 experts of 32 at top-2 and a shared 48."""
-    if decoder == "granite":
+    (4 heads of 16, 2 KV heads), 8 experts of 32 at top-2 and a shared 48;
+    "kimi_linear": the Kimi-Linear decoder at width 64, layers KDA, KDA, KDA,
+    MLA, KDA (KDA 4 heads of 16, MLA as the DeepSeek one's, unrotated), the
+    first with a dense MLP of 96, then 8 experts of 32 at top-2 and one shared."""
+    if decoder == "kimi_linear":
+        lm = KimiLinearConfig(vocab_size=512, dim=64, layers=5, heads=4, mlp_dim=96, moe_dim=32, n_experts=8, top_k=2,
+                              n_shared=1, kv_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_dim=16, rope_theta=10000.0,
+                              kda_layers=(0, 1, 2, 4), kda_heads=4, kda_head_dim=16)
+    elif decoder == "granite":
         lm = GraniteConfig(vocab_size=512, dim=64, layer_types=("mamba", "attention", "mamba", "mamba"), heads=4,
                            kv_heads=2, moe_dim=32, n_experts=8, top_k=2, shared_dim=48, ssm_heads=16, ssm_head_dim=8,
                            state=16, chunk=8, attention_multiplier=1 / 16)
@@ -369,7 +390,7 @@ def debug_colpali_config(image_size: int = 28, decoder: str = "gemma") -> ColPal
 
 def load_debug_colpali(info: ModelInfo, seed: int = 0, *, device, dtype=torch.float32):
     """Random-init small ColPali (28 px images, 4 patches) for offline runs;
-    the DeepSeek and Granite variants (``info.decoder``) query through
+    the DeepSeek, Granite and Kimi-Linear variants (``info.decoder``) query through
     ColPali's prompt on the word tokenizer."""
     from .arch import colpali_word_tokenizer
     from .zoo import LoadedModel, hash_tokenizer
@@ -377,7 +398,7 @@ def load_debug_colpali(info: ModelInfo, seed: int = 0, *, device, dtype=torch.fl
     cfg = debug_colpali_config(decoder=info.decoder)
     pre = PreprocessConfig(image_size=cfg.vision.image_size, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD)
     vocab = cfg.gemma.vocab_size
-    moe = info.decoder in ("deepseek", "granite")
+    moe = info.decoder in ("deepseek", "granite", "kimi_linear")
     tokenize = colpali_word_tokenizer(vocab) if moe else hash_tokenizer(vocab, 16, vocab - 1)
     return LoadedModel(
         info=info,

@@ -13,7 +13,9 @@ The equations are those of ``transformers``' ``DeepseekV3Model``:
   and ``v_dim`` value; the rope parts rotated with the interleaved layout
   (pairs de-interleaved, then rotate-half; here each pair turned as one
   complex number, the rotations made once a forward) at positions
-  ``cumsum(mask) - 1`` in f32; scale ``(qk_nope + qk_rope)^-1/2``. Attention goes to
+  ``cumsum(mask) - 1`` in f32 (where ``nope``, ``mla_use_nope`` of a
+  Kimi-Linear config, the rope parts are kept as they are, unrotated); scale
+  ``(qk_nope + qk_rope)^-1/2``. Attention goes to
   ``decoder_attn.grouped_attention`` (the fused kernel on the card) at
   head size ``qk_nope + qk_rope``, the values zero-padded to it and the
   output sliced back to ``v_dim``;
@@ -77,6 +79,7 @@ class DeepseekConfig:
     norm_topk: bool = True
     rope_theta: float = 800000.0
     rms_eps: float = 1e-5
+    nope: bool = False  # ``mla_use_nope``: the rope parts of q and k left unrotated
 
     @property
     def head_dim(self) -> int:
@@ -110,7 +113,7 @@ def deepseek_config_from_hf(c) -> DeepseekConfig:
         raise ValueError("DeepSeek decoder: only one expert group and sigmoid scores are supported")
     if get("moe_layer_freq", 1) != 1 or get("hidden_act", "silu") != "silu":
         raise ValueError("DeepSeek decoder: only a MoE layer every layer after the dense ones, with silu")
-    return DeepseekConfig(**{k: get(hf) for k, hf in _HF_KEYS.items()})
+    return DeepseekConfig(**{k: get(hf) for k, hf in _HF_KEYS.items()}, nope=bool(get("mla_use_nope", False)))
 
 
 KV_NORM_EPS = 1e-6  # the latent's RMSNorm (``kv_a_layernorm``) takes DeepseekV3RMSNorm's default
@@ -145,19 +148,13 @@ class DeepseekLayer(DecoderLayer):
     def __init__(self, cfg: DeepseekConfig, index: int, *, gen, device, dtype):
         super().__init__()
         self.cfg, self.index = cfg, index
-        d, h = cfg.dim, cfg.heads
+        d = cfg.dim
 
         def p(*shape, **kw):
             return param(shape, gen, device, kw.pop("dtype", dtype), **kw)
 
         self.ln1, self.ln2 = p(d, std=None), p(d, std=None)
-        self.attn = nn.ParameterDict({
-            "q": p(d, h * cfg.head_dim),
-            "kv_a": p(d, cfg.kv_rank + cfg.qk_rope_dim),
-            "kv_norm": p(cfg.kv_rank, std=None),
-            "kv_b": p(cfg.kv_rank, h * (cfg.qk_nope_dim + cfg.v_dim)),
-            "o": p(h * cfg.v_dim, d),
-        })
+        self.make_mixer(p)
         self.is_moe = index >= cfg.first_dense
         if not self.is_moe:
             self.mlp = nn.ParameterDict({"gate_up": p(d, 2 * cfg.mlp_dim), "down": p(cfg.mlp_dim, d)})
@@ -177,6 +174,19 @@ class DeepseekLayer(DecoderLayer):
         self.routes: list | None = None
         self.rope: dict | None = None
 
+    def make_mixer(self, p) -> None:
+        """The token mixer's weights, drawn through ``p(*shape, ...)``: MLA's
+        ``attn``."""
+        cfg = self.cfg
+        d, h = cfg.dim, cfg.heads
+        self.attn = nn.ParameterDict({
+            "q": p(d, h * cfg.head_dim),
+            "kv_a": p(d, cfg.kv_rank + cfg.qk_rope_dim),
+            "kv_norm": p(cfg.kv_rank, std=None),
+            "kv_b": p(cfg.kv_rank, h * (cfg.qk_nope_dim + cfg.v_dim)),
+            "o": p(h * cfg.v_dim, d),
+        })
+
     def qkv(self, x, positions):
         """q and k [B, T, H, qk_nope + qk_rope] (the shared rope key repeated
         over the heads), v [B, T, H, v_dim]."""
@@ -185,6 +195,10 @@ class DeepseekLayer(DecoderLayer):
         q = (x @ p["q"]).view(b, t, cfg.heads, cfg.head_dim)
         latent, k_rope = (x @ p["kv_a"]).split([cfg.kv_rank, cfg.qk_rope_dim], dim=-1)
         kv = (rms_norm(p["kv_norm"], latent, KV_NORM_EPS) @ p["kv_b"]).view(b, t, cfg.heads, -1)
+        if cfg.nope:
+            k = torch.cat([kv[..., : cfg.qk_nope_dim],
+                           k_rope[:, :, None, :].expand(b, t, cfg.heads, cfg.qk_rope_dim)], dim=-1)
+            return q, k, kv[..., cfg.qk_nope_dim :]
         rot = self.rope.get("rot") if self.rope is not None else None
         if rot is None:
             rot = rope_rotation(positions, cfg.qk_rope_dim, cfg.rope_theta)
@@ -211,17 +225,22 @@ class DeepseekLayer(DecoderLayer):
             self.routes.append(r.experts)
         return out.view(b, t, d)
 
+    def mix(self, x, positions, key_mask, causal: bool) -> torch.Tensor:
+        """The token mixer, MLA, over the normed x [B, T, D] -> [B, T, D]."""
+        cfg = self.cfg
+        b, t, _ = x.shape
+        q, k, v = self.qkv(x, positions)
+        v = F.pad(v, (0, cfg.head_dim - cfg.v_dim))
+        out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal, sm_scale=cfg.head_dim**-0.5)
+        out = out.view(b, t, cfg.heads, cfg.head_dim)[..., : cfg.v_dim].reshape(b, t, cfg.heads * cfg.v_dim)
+        return out @ self.attn["o"]
+
     def forward(self, h, positions, key_mask, causal: bool, sp=None):
         """[B, T, D] -> (h, None, None): no KV cache is kept."""
         if sp is not None:
             raise NotImplementedError("the DeepSeek decoder has no sequence-parallel path")
         cfg = self.cfg
-        b, t, _ = h.shape
-        q, k, v = self.qkv(self.norm(self.ln1, h, cfg.rms_eps), positions)
-        v = F.pad(v, (0, cfg.head_dim - cfg.v_dim))
-        out = grouped_attention(q, k, v, key_mask=key_mask, causal=causal, sm_scale=cfg.head_dim**-0.5)
-        out = out.view(b, t, cfg.heads, cfg.head_dim)[..., : cfg.v_dim].reshape(b, t, cfg.heads * cfg.v_dim)
-        h = h + out @ self.attn["o"]
+        h = h + self.mix(self.norm(self.ln1, h, cfg.rms_eps), positions, key_mask, causal)
         return h + self.mlp_out(self.norm(self.ln2, h, cfg.rms_eps)), None, None
 
     def decode(self, *args, **kwargs):
@@ -229,14 +248,16 @@ class DeepseekLayer(DecoderLayer):
 
 
 class DeepseekLM(RoutedLM):
-    """Token embedding table ``embed`` [V, D], ``layers.<i>``, ``final_norm``."""
+    """Token embedding table ``embed`` [V, D], ``layers.<i>`` (``layer_cls``),
+    ``final_norm``."""
 
     norm = staticmethod(rms_norm)
+    layer_cls = DeepseekLayer
 
     def __init__(self, cfg: DeepseekConfig, *, gen: torch.Generator | None, device, dtype):
         super().__init__()
         self.cfg = cfg
-        self.layers = nn.ModuleList(DeepseekLayer(cfg, i, gen=gen, device=device, dtype=dtype)
+        self.layers = nn.ModuleList(self.layer_cls(cfg, i, gen=gen, device=device, dtype=dtype)
                                     for i in range(cfg.layers))
         self.embed = param((cfg.vocab_size, cfg.dim), gen, device, dtype)
         self.final_norm = param((cfg.dim,), gen, device, dtype, std=None)
@@ -261,6 +282,14 @@ class DeepseekLM(RoutedLM):
         return self.hidden_states(inputs_embeds, attn_mask, causal, sp)
 
 
+def mla_from_hf(w) -> dict[str, torch.Tensor]:
+    """An HF MLA's ``self_attn.*`` tensors -> this module's ``attn.*`` names,
+    each read through ``w(key, transpose=True)``."""
+    return {"attn.q": w("self_attn.q_proj.weight"), "attn.kv_a": w("self_attn.kv_a_proj_with_mqa.weight"),
+            "attn.kv_norm": w("self_attn.kv_a_layernorm.weight", False), "attn.kv_b": w("self_attn.kv_b_proj.weight"),
+            "attn.o": w("self_attn.o_proj.weight")}
+
+
 def layer_from_hf(sd: Mapping[str, torch.Tensor], prefix: str, cfg: DeepseekConfig, index: int,
                   dtype) -> dict[str, torch.Tensor]:
     """HF ``DeepseekV3DecoderLayer`` ``prefix.layers.<index>`` tensors ->
@@ -273,9 +302,7 @@ def layer_from_hf(sd: Mapping[str, torch.Tensor], prefix: str, cfg: DeepseekConf
         return owned(x.T if t else x, dtype)
 
     out = {"ln1": w("input_layernorm.weight", False), "ln2": w("post_attention_layernorm.weight", False),
-           "attn.q": w("self_attn.q_proj.weight"), "attn.kv_a": w("self_attn.kv_a_proj_with_mqa.weight"),
-           "attn.kv_norm": w("self_attn.kv_a_layernorm.weight", False), "attn.kv_b": w("self_attn.kv_b_proj.weight"),
-           "attn.o": w("self_attn.o_proj.weight")}
+           **mla_from_hf(w)}
     if index < cfg.first_dense:
         out["mlp.gate_up"] = torch.cat([w("mlp.gate_proj.weight"), w("mlp.up_proj.weight")], dim=1)
         out["mlp.down"] = w("mlp.down_proj.weight")

@@ -35,7 +35,8 @@ class ModelInfo:
     trust_remote_code: bool = False
     preprocess: PreprocessConfig | None = None
     text_max_len: int = 77
-    decoder: str = "gemma"  # a colpali model's language model: "gemma", "deepseek" or "granite" (models/<name>.py)
+    # a colpali model's language model: "gemma", "deepseek", "granite" or "kimi_linear" (models/<name>.py)
+    decoder: str = "gemma"
 
 
 MODEL_REGISTRY: list[ModelInfo] = [
@@ -141,6 +142,20 @@ EXTRA_MODELS: list[ModelInfo] = [
         ),
         text_max_len=64,
         decoder="granite",
+    ),
+    # Kimi-Linear-48B-A3B's language model (a hybrid of KDA linear-attention
+    # and NoPE MLA layers, three to one, each with 256 routed experts of which
+    # 8 a token and one shared) in the same place; random weights only
+    ModelInfo(
+        name="ColPali-Kimi-Linear-48B-A3B",
+        hf_id="moonshotai/Kimi-Linear-48B-A3B-Instruct",
+        type="colpali",
+        batch_size=8,
+        preprocess=PreprocessConfig(
+            image_size=448, resize_mode="exact", mean=SIGLIP_MEAN, std=SIGLIP_STD
+        ),
+        text_max_len=64,
+        decoder="kimi_linear",
     ),
 ]
 

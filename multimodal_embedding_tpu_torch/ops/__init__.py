@@ -15,11 +15,13 @@ from ..utils.profiling import KERNELS
 # a Granite-4.0-H-Small one. ``ssm_scan`` is the Granite decoder's state-space
 # scan (``ops/ssm_cuda.py``), one a Mamba-2 layer: 36 a forward;
 # ``ssm_scan_chunked`` counts again each scan launch that ran the chunked
-# body (``ssm_cuda.uses_chunked``: bf16).
+# body (``ssm_cuda.uses_chunked``: bf16). ``kda_scan`` is the Kimi-Linear
+# decoder's KDA recurrence (``ops/kda_cuda.py``), one a KDA layer: 12 a forward
+# of the benchmark's 16-layer cut.
 LAUNCH_KEYS = ("fused_attention", "fused_attention_f32", "fused_attention_qkv", "preprocess", "maxsim", "maxsim_f32",
                "fused_res_norm_matmul", "fused_layer_norm", "fused_res_norm_rows", "mlp_activation", "grouped_mm",
                "fused_attention_wgmma", "moe_swiglu", "moe_combine", "ssm_scan",
-               "ssm_scan_chunked")
+               "ssm_scan_chunked", "kda_scan")
 
 
 def launch_counts() -> dict[str, int]:

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("attention", "preprocess", "maxsim", "fused_ln_matmul", "layernorm", "activation", "moe", "ssm")
+KERNELS = ("attention", "preprocess", "maxsim", "fused_ln_matmul", "layernorm", "activation", "moe", "ssm", "kda")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -6,7 +6,8 @@ and counter of the port lives here, in a :class:`Tally`: one process-wide
 tally for the kernel wrappers (:data:`KERNELS`, its counts the launches that
 ``ops.launch_counts()`` reads), one per ``EncodingEngine``
 (``engine.tally``) and one per MoE decoder (``models/deepseek.py``,
-``DeepseekLM.tally``; ``models/granite.py``, ``GraniteLM.tally``).
+``DeepseekLM.tally``; ``models/granite.py``, ``GraniteLM.tally``;
+``models/kimi_linear.py``, ``KimiLinearLM.tally``).
 
 - A span (:meth:`Tally.span`) is on exactly while a ``torch.profiler``
   records: it then opens a profiler range named ``mme.<name>`` (a
@@ -30,14 +31,19 @@ The spans, by name (each a range ``mme.<name>``):
 - ``kernel.<kernel>``: a kernel wrapper's launch (``fused_attention``,
   ``fused_attention_qkv``, ``maxsim``, ``preprocess``,
   ``fused_res_norm_matmul``, ``fused_layer_norm``, ``mlp_activation``,
-  ``moe_swiglu``, ``moe_combine``, ``ssm_scan``), on :data:`KERNELS`;
+  ``moe_swiglu``, ``moe_combine``, ``ssm_scan``, ``kda_scan``), on
+  :data:`KERNELS`;
 - ``moe.route``, ``moe.experts``, ``moe.combine``: a MoE layer's router,
   top-k, sort, expert row ends and inverse permutation; its grouped
   products and SwiGLU; its shared experts and weighted combine
   (``ops/moe.py:moe`` and ``moe_softmax``), on the decoder's tally;
 - ``ssm.in``, ``ssm.scan``, ``ssm.out``: a Mamba-2 layer's ``in_proj``, conv
   and dt; its scan; its gated norm and ``out_proj``
-  (``models/granite.py:GraniteLayer.ssm``), on the Granite decoder's tally.
+  (``models/granite.py:GraniteLayer.ssm``), on the Granite decoder's tally;
+- ``kda.in``, ``kda.scan``, ``kda.out``: a KDA layer's projections, short
+  convs, log decays and beta; its recurrence; its gated norm and ``o_proj``
+  (``models/kimi_linear.py:KimiLinearLayer.kda_mix``), on the Kimi-Linear
+  decoder's tally.
 
 The engine's counts: ``encode.image_rows`` and ``encode.image_pad_rows``
 (rows the vision tower ran and the padding among them),
@@ -46,12 +52,14 @@ length the text tower ran, and the zeros of the mask among them); under a
 mesh each rank counts its own rows. The MoE decoders':
 ``moe.routed_rows`` (tokens times top-k, a MoE layer, from shapes); the
 Granite decoder's also ``ssm.tokens`` (rows times length, a Mamba-2 layer,
-from shapes). Each expert's routed rows a MoE layer are counted on the
+from shapes), the Kimi-Linear decoder's ``kda.tokens`` (rows times length, a
+KDA layer, from shapes). Each expert's routed rows a MoE layer are counted on the
 device instead (``expert_loads``, one add a layer, no sync) and read by
 ``take_expert_loads`` after a barrier. :data:`KERNELS` also counts
 ``grouped_mm``, each grouped expert product on the card, the decoders'
-``moe_swiglu`` and ``moe_combine`` kernels and the Granite decoder's
-``ssm_scan`` (again as ``ssm_scan_chunked`` on the kernel's chunked body).
+``moe_swiglu`` and ``moe_combine`` kernels, the Granite decoder's
+``ssm_scan`` (again as ``ssm_scan_chunked`` on the kernel's chunked body) and
+the Kimi-Linear decoder's ``kda_scan``.
 
 A text batch on the card replays a CUDA graph (``utils/graphs.py``): the
 replay opens none of the forward's spans, and adds again the counts that

@@ -81,13 +81,13 @@ def test_launch_counts_put_each_launch_under_one_name(monkeypatch):
     for name, n in (("maxsim", 4), ("maxsim_f32", 1), ("preprocess", 4), ("fused_res_norm_matmul", 6),
                     ("fused_layer_norm", 8), ("fused_res_norm_rows", 5), ("mlp_activation", 7), ("grouped_mm", 9),
                     ("moe_swiglu", 10), ("moe_combine", 11), ("ssm_scan", 12),
-                    ("ssm_scan_chunked", 3)):
+                    ("ssm_scan_chunked", 3), ("kda_scan", 13)):
         KERNELS.count(name, n)
     counts = ops.launch_counts()
     assert counts == {"fused_attention": 4, "fused_attention_f32": 3, "fused_attention_qkv": 2, "preprocess": 4,
                       "maxsim": 4, "maxsim_f32": 1, "fused_res_norm_matmul": 6, "fused_layer_norm": 8,
                       "fused_res_norm_rows": 5, "mlp_activation": 7, "grouped_mm": 9,
                       "fused_attention_wgmma": 6, "moe_swiglu": 10, "moe_combine": 11, "ssm_scan": 12,
-                      "ssm_scan_chunked": 3}
+                      "ssm_scan_chunked": 3, "kda_scan": 13}
     ops.reset_launch_counts()
     assert not any(ops.launch_counts().values())
